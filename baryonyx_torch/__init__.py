@@ -1,5 +1,6 @@
 """baryonyx_torch: the 0-1 integer linear program solver in PyTorch, with
-its fused sweep as a hand-written CUDA kernel for Hopper.
+its fused sweep and its knapsack DP row selector (for rows with integer
+factors) as hand-written CUDA kernels for Hopper.
 
 A Wedelin-style Lagrangian dual-descent heuristic (reference:
 quesnel/baryonyx v0.5.0). This package imports torch, numpy and the

@@ -6,7 +6,8 @@ phase, sharing one solution population under a mutex
 (reference: itm-optimizer-common.hpp:620-751 optimize_functor,
 :776-908 optimize_problem). Here each "thread" is a replica on the trailing
 axis R of every state tensor: one evolution step advances every replica by
-one fused sweep (ops/psweep.py) and runs its per-replica restart state
+one sweep (the fused sweep of ops/psweep.py, or ops/zsweep.py's for
+instances with integer factors) and runs its per-replica restart state
 machine; population insertion, crossover and mutation are batched tensor
 ops inside the same step.
 
@@ -51,6 +52,7 @@ from baryonyx_torch.core.result import Result, ResultStatus, Solution
 from baryonyx_torch.device import DeviceLike, resolve_device
 from baryonyx_torch.memory import estimated_peak_bytes
 from baryonyx_torch.ops import psweep as pw
+from baryonyx_torch.ops import zsweep as zs
 from baryonyx_torch.ops.layout import CompiledProblem, compile_problem
 from baryonyx_torch.ops.sweep import violated_mask
 from baryonyx_torch.preprocess.merge import make_merged_constraints
@@ -163,17 +165,27 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
         order.long().clamp(max=m)
     ]
     order2 = order[torch.argsort((~padded).to(torch.int8), stable=True)]
-    n_rows = padded.sum(dtype=torch.int32)
-    seed = torch.randint(
-        0, INT_MAX, (2,), generator=gen, device=dev, dtype=torch.int32
-    )
 
-    x, P, pi, S, viol, remaining = pw.psweep(
-        cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
-        hp["delta"], hp["theta"], seed, amp, n_rows=n_rows,
-        minimize=minimize, block_size=B, S=rs.S,
-        S_fresh=(state.sweeps % 16) != 0,
-    )
+    if cp.has_z:
+        # the Z sweep walks every block (no row count read on the host)
+        # and keeps no column sums across sweeps
+        x, P, pi, viol, remaining = zs.z_sweep(
+            cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
+            hp["delta"], hp["theta"], gen, amp, minimize=minimize,
+            block_size=B,
+        )
+        S = rs.S
+    else:
+        n_rows = padded.sum(dtype=torch.int32)
+        seed = torch.randint(
+            0, INT_MAX, (2,), generator=gen, device=dev, dtype=torch.int32
+        )
+        x, P, pi, S, viol, remaining = pw.psweep(
+            cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
+            hp["delta"], hp["theta"], seed, amp, n_rows=n_rows,
+            minimize=minimize, block_size=B, S=rs.S,
+            S_fresh=(state.sweeps % 16) != 0,
+        )
 
     value = ev.cost_orig @ x.to(dtype) + ev.cost_constant
     found = remaining == 0  # [R]
@@ -367,12 +379,14 @@ def replica_batch(
 ) -> Tuple[int, int]:
     """The replica batch R and the row block size the optimizer runs
     with: on CUDA the largest of (2048, 4), (1024, 4), (1024, 8) the
-    fused sweep takes (an explicit thread count or block size wins), then
-    halved while the state overflows the device budget."""
+    fused sweep takes (an explicit thread count or block size wins); Z
+    instances keep ``default_replicas`` and the requested block size, as
+    the JAX package does. Then R is halved while the state overflows the
+    device budget."""
     dtype = torch.float32
     R = default_replicas(params, device)
     block_size = params.block_size
-    if params.thread <= 0 and device.type == "cuda":
+    if not cp.has_z and params.thread <= 0 and device.type == "cuda":
         # grow the replica batch to the largest the fused sweep takes;
         # honor an explicit user block_size
         user_B = params.block_size != SolverParameters().block_size
@@ -382,7 +396,7 @@ def replica_batch(
                 R = cand_R
                 block_size = bs
                 break
-    if not pw.supports(cp, R, dtype, device):
+    if not cp.has_z and not pw.supports(cp, R, dtype, device):
         _refuse(
             f"this instance at R={R} (Kr={cp.Kr}; R % 32 on CUDA)",
             "Queue 1 item 2, the general sweep",
@@ -392,12 +406,15 @@ def replica_batch(
     # JAX package shards rows across devices, which is not ported
     budget = device_budget_bytes(device)
     if budget is not None:
-        while estimated_peak_bytes(cp, R) > budget and R > 128:
+        def peak(R):
+            return estimated_peak_bytes(cp, R, B=block_size)
+
+        while peak(R) > budget and R > 128:
             R //= 2
-        if estimated_peak_bytes(cp, R) > budget:
+        if peak(R) > budget:
             _refuse(
                 f"an optimize state over the device budget "
-                f"({estimated_peak_bytes(cp, R)} bytes at R={R}, budget "
+                f"({peak(R)} bytes at R={R}, budget "
                 f"{budget}), which needs row sharding,",
                 "Queue 1 item 11",
             )
@@ -551,11 +568,9 @@ def optimize_compiled(
         ret.remaining_constraints = 1
         common.finalize(ret, pb, len(constraints), t0)
         return ret
-    if cp.has_z:
-        _refuse("rows with integer factors (Z rows)", "Queue 1 item 8")
     if cp.has_quad:
         _refuse("a quadratic objective", "Queue 1 item 9")
-    if not cp.sel_reduction_ok:
+    if not cp.has_z and not cp.sel_reduction_ok:
         _refuse(
             "an instance whose selection needs the full sort",
             "Queue 1 item 2, the general sweep",
@@ -780,9 +795,12 @@ def optimize_compiled(
         ).cpu().numpy()
         return np.array([dev_stats[0], dev_stats[1], st.sweeps, dev_stats[2]])
 
-    # the kernel builds at first use: keep that out of the time budget
+    # the kernels build at first use: keep that out of the time budget
     if dev.type == "cuda":
-        pw.psweep_kernel.load()
+        if not cp.has_z:
+            pw.psweep_kernel.load()
+        elif cp.Wdp:
+            zs.dp_select_kernel.load()
     budget_t0 = time.monotonic()
     chunk = max(1, params.chunk_size)
 

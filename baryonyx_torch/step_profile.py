@@ -2,15 +2,19 @@
 
     python -m baryonyx_torch.step_profile [--seed N] [--out DIR]
 
-Runs ``optimize`` on scp200x1000 (random_set_cover_lp(200, 1000, 0.02,
-seed=41), the main path) for its default budget of 1000 sweeps in fixed
-chunks of 100 steps, and traces the fourth chunk with torch.profiler, started and
-stopped from the progress callback so that set-up and warm-up stay
-outside the window. Prints, and writes to DIR/profile.json:
-the wall time per step of the untraced chunk before it, the device time per
-step summed over all kernels and over the fused sweep kernel, the device
-idle share (1 - device time / wall time), and the ten kernels and the ten
-host ops that take the most time in the traced chunk.
+Runs ``optimize`` for its default budget of 1000 sweeps in fixed chunks,
+on each instance in turn: scp200x1000
+(random_set_cover_lp(200, 1000, 0.02, seed=41), the main path, whose
+sweep is the fused sweep kernel) and zknap200x1000
+(random_z_multiknapsack_lp(200, 1000, seed=2), the Z path, whose long
+rows go to the knapsack DP kernel). The fourth chunk is traced with
+torch.profiler, started and stopped from the progress callback so that
+set-up and warm-up stay outside the window. Prints, and writes to
+DIR/profile.json: the wall time per step of the untraced chunk before it,
+the device time per step summed over all kernels and over the instance's
+hand-written kernel, the device idle share (1 - device time / wall time),
+and the ten kernels and the ten host ops that take the most time in the
+traced chunk.
 """
 
 from __future__ import annotations
@@ -25,7 +29,17 @@ from pathlib import Path
 import torch
 
 import baryonyx_torch as bt
-from baryonyx_torch.generators import random_set_cover_lp
+from baryonyx_torch.generators import random_set_cover_lp, random_z_multiknapsack_lp
+
+# name: (LP text, steps per chunk, the hand-written kernel's symbol)
+INSTANCES = {
+    "scp200x1000": (
+        lambda: random_set_cover_lp(200, 1000, 0.02, seed=41), 100, "psweep_kernel"
+    ),
+    "zknap200x1000": (
+        lambda: random_z_multiknapsack_lp(200, 1000, seed=2), 25, "dpselect_kernel"
+    ),
+}
 
 
 def _device_us(evt) -> float:
@@ -36,18 +50,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--out", default="build")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("step_profile: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
+def profile(name: str, seed: int, card: str) -> dict:
+    lp, chunk, kernel = INSTANCES[name]
     prof = torch.profiler.profile(
         activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -67,12 +71,10 @@ def main() -> None:
             prof.stop()
 
     ctx = bt.make_context(0)
-    ctx.parameters.seed = args.seed
-    ctx.parameters.chunk_size = 100  # no time limit: fixed chunks
+    ctx.parameters.seed = seed
+    ctx.parameters.chunk_size = chunk  # no time limit: fixed chunks
     ctx.register(update=on_update)
-    raw = bt.make_problem(
-        ctx, io.StringIO(random_set_cover_lp(200, 1000, 0.02, seed=41))
-    )
+    raw = bt.make_problem(ctx, io.StringIO(lp()))
     result = bt.optimize(ctx, raw)
     if len(calls) < 4:
         raise SystemExit(f"step_profile: only {len(calls)} chunks ran")
@@ -97,32 +99,51 @@ def main() -> None:
         key=lambda t: -t[1],
     )
     device_us = sum(t[1] for t in dev)
-    sweep_us = sum(t[1] for t in dev if "psweep_kernel" in t[0])
-    out = dict(
+    kernel_us = sum(t[1] for t in dev if kernel in t[0])
+    return dict(
         card=card,
-        instance="scp200x1000",
+        instance=name,
+        kernel=kernel,
         R=result.replicas,
         B=result.block_size,
         chunk_steps=steps,
         traced_chunk_wall_ms=traced_s * 1e3,
         step_wall_ms=wall_s * 1e3 / steps,
         device_ms_per_step=device_us / 1e3 / steps,
-        sweep_kernel_ms_per_step=sweep_us / 1e3 / steps,
+        kernel_ms_per_step=kernel_us / 1e3 / steps,
+        device_kernel_launches_per_step=sum(t[2] for t in dev) / steps,
         device_idle_share=1.0 - device_us / 1e6 / wall_s,
-        sweep_kernel_share_of_wall=sweep_us / 1e6 / wall_s,
+        kernel_share_of_wall=kernel_us / 1e6 / wall_s,
         top_device=[dict(name=k, ms=v / 1e3, count=c) for k, v, c in dev[:10]],
         top_host=[dict(name=k, ms=v / 1e3, count=c) for k, v, c in host[:10]],
     )
-    Path(args.out).mkdir(parents=True, exist_ok=True)
-    (Path(args.out) / "profile.json").write_text(json.dumps(out, indent=1))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--out", default="build")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("step_profile: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
     print(card)
-    for k, v in out.items():
-        if k not in ("top_device", "top_host"):
-            print(f"{k}: {v}")
-    for row in out["top_device"]:
-        print(f"  device {row['ms']:10.3f} ms  x{row['count']:6d}  {row['name'][:90]}")
-    for row in out["top_host"]:
-        print(f"  host   {row['ms']:10.3f} ms  x{row['count']:6d}  {row['name'][:90]}")
+    runs = []
+    for name in INSTANCES:
+        out = profile(name, args.seed, card)
+        runs.append(out)
+        for k, v in out.items():
+            if k not in ("top_device", "top_host"):
+                print(f"{k}: {v}")
+        for row in out["top_device"]:
+            print(f"  device {row['ms']:10.3f} ms  x{row['count']:6d}  {row['name'][:90]}")
+        for row in out["top_host"]:
+            print(f"  host   {row['ms']:10.3f} ms  x{row['count']:6d}  {row['name'][:90]}")
+    Path(args.out).mkdir(parents=True, exist_ok=True)
+    (Path(args.out) / "profile.json").write_text(json.dumps(runs, indent=1))
 
 
 if __name__ == "__main__":

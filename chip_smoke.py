@@ -24,7 +24,22 @@ baryonyx_torch/csrc, then:
   3. at those main-path sweep inputs, holds the kernel against its plain
      version once more and times both with CUDA events; the bound counts
      the bytes that state needs (the scheduled pairs' P, pi, S and x);
-  4. prints one JSON line with every kernel's numbers, then the last
+  4. holds the knapsack DP kernel (csrc/dpselect.cu) against its plain
+     PyTorch version, bit for bit, at random reduced costs (R = 512, both
+     objectives) on the DP rows of zknap200x1000
+     (random_z_multiknapsack_lp(200, 1000, seed=2), table width 88) and of
+     a wide-table instance (random_z_multiknapsack_lp(64, 400,
+     row_len=(13, 24), coeff_range=(1, 150), seed=3), width 2048), and
+     times both;
+  5. drives the Z path — baryonyx_torch.optimize on zknap200x1000 through
+     make_problem, for 10 s — with the launch counters set to 0 just
+     before and read just after: the solution must be valid, and the DP
+     launches must equal the blocks the sweeps processed; the run keeps
+     copies of the DP inputs of some sweeps;
+  6. at those inputs, holds the DP kernel against its plain version again
+     and times both; the bound is the larger of the bytes the selection
+     needs over the memory rate and its operations over the float32 rate;
+  7. prints one JSON line with every kernel's numbers, then the last
      line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line. Without a CUDA device, or
@@ -47,7 +62,9 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SWEEPS = 3
 TIME_LIMIT_S = 10.0  # the optimize budget of the main-path run
 NRE_TIME_LIMIT_S = 6.0  # the optimize budget of the scpnre run
-KERNELS = ["psweep"]
+Z_TIME_LIMIT_S = 10.0  # the optimize budget of the Z-path run
+DP_R = 512  # replicas of the DP parity phase (the Z path's default R)
+KERNELS = ["psweep", "dpselect"]
 TOL = {"P": 2e-4, "pi": 2e-4, "S": 2e-3}
 
 
@@ -103,8 +120,12 @@ def main() -> int:
     import numpy as np
 
     import baryonyx_torch as bt
-    from baryonyx_torch.generators import random_set_cover_lp
+    from baryonyx_torch.generators import (
+        random_set_cover_lp,
+        random_z_multiknapsack_lp,
+    )
     from baryonyx_torch.ops import psweep as pw
+    from baryonyx_torch.ops import zsweep as zs
     from baryonyx_torch.ops.layout import compile_problem
     from baryonyx_torch.ops.sweep import violated_mask
     from baryonyx_torch.preprocess.merge import make_merged_constraints
@@ -167,15 +188,17 @@ def main() -> int:
         torch.cuda.synchronize()
         return (x, P, pi, S, rem), shares
 
-    class Capture:
-        """Wraps psweep for an optimize run: keeps copies of the inputs of
-        every ``every``-th sweep (the last ``keep`` of them)."""
+    counters = {"psweep": pw.psweep_kernel, "dpselect": zs.dp_select_kernel}
 
-        def __init__(self, every: int, keep: int):
+    class Capture:
+        """Wraps a kernel's dispatcher for an optimize run: keeps copies of
+        the inputs of every ``every``-th call (the last ``keep`` of them)."""
+
+        def __init__(self, real, every: int, keep: int):
             self.every = every
             self.states = collections.deque(maxlen=keep)
             self.calls = 0
-            self.real = pw.psweep
+            self.real = real
 
         def __call__(self, *a, **kw):
             self.calls += 1
@@ -188,7 +211,12 @@ def main() -> int:
         c = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
         return tuple(c(v) for v in a), {k: c(v) for k, v in kw.items()}
 
-    def run_optimize(lp: str, limit: float, every: int, keep: int):
+    def run_optimize(lp: str, limit: float, every: int, keep: int,
+                     module=pw, attr="psweep"):
+        """optimize on ``lp`` for ``limit`` s, with ``module.attr`` wrapped
+        by a Capture; every launch counter is set to 0 just before and
+        read just after. Returns (raw, result, launches by kernel,
+        replica-sweeps/s, captured inputs)."""
         ctx = bt.make_context(4)
         ctx.parameters.seed = args.seed
         ctx.parameters.time_limit = limit
@@ -199,15 +227,16 @@ def main() -> int:
 
         ctx.register(update=on_update)
         raw = bt.make_problem(ctx, io.StringIO(lp))
-        cap = Capture(every, keep)
-        pw.psweep = cap
+        cap = Capture(getattr(module, attr), every, keep)
+        setattr(module, attr, cap)
         try:
-            pw.psweep_kernel.launches = 0
+            for k in counters.values():
+                k.launches = 0
             result = bt.optimize(ctx, raw)
             torch.cuda.synchronize()
-            launches = pw.psweep_kernel.launches
+            launches = {name: k.launches for name, k in counters.items()}
         finally:
-            pw.psweep = cap.real
+            setattr(module, attr, cap.real)
         rate = result.replicas * last["loop"] / last["elapsed"]
         return raw, result, launches, rate, list(cap.states)
 
@@ -309,32 +338,33 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- phase 2: the main path, then optimize on the scpnre class
-    raw, result, launches, rate, main_states = run_optimize(
+    raw, result, counts, rate, main_states = run_optimize(
         instances["scp200x1000"], TIME_LIMIT_S, every=256, keep=8
     )
+    launches = counts["psweep"]
     valid = bt.is_valid_solution(raw, result)
     print(f"[optimize scp200x1000] status {result.status.name} objective "
           f"{result.value} sweeps {result.loop} R {result.replicas} "
           f"B {result.block_size} replica-sweeps/s {rate:.1f} "
-          f"psweep.launches {launches} valid {valid} "
+          f"launches {counts} valid {valid} "
           f"duration {result.duration:.2f} s")
     if result.status != bt.ResultStatus.success or not valid:
         fail("optimize did not return a valid feasible solution")
     if not np.isfinite(result.value):
         fail("optimize returned a non-finite objective")
-    if launches <= 0 or launches != result.loop:
-        fail(f"psweep launches {launches} vs sweeps {result.loop}")
+    if launches <= 0 or launches != result.loop or counts["dpselect"]:
+        fail(f"launches {counts} vs sweeps {result.loop}")
     optimize_rec = {"objective": result.value, "sweeps": result.loop,
                     "R": result.replicas, "B": result.block_size,
                     "replica_sweeps_per_s": rate}
 
-    raw2, res2, launches2, rate2, nre_states = run_optimize(
+    raw2, res2, counts2, rate2, nre_states = run_optimize(
         instances["scpnre500x5000"], NRE_TIME_LIMIT_S, every=4, keep=3
     )
     print(f"[optimize scpnre500x5000] status {res2.status.name} objective "
           f"{res2.value} sweeps {res2.loop} R {res2.replicas} "
           f"B {res2.block_size} replica-sweeps/s {rate2:.1f} "
-          f"psweep.launches {launches2} valid "
+          f"launches {counts2} valid "
           f"{bt.is_valid_solution(raw2, res2)}")
     del raw2, res2
 
@@ -380,7 +410,134 @@ def main() -> int:
         del states[:]
         torch.cuda.empty_cache()
 
-    # ---- phase 4: the kernels line, then the result line
+    # ---- phase 4: the DP kernel vs its plain version at random inputs
+    z_instances = {
+        "zknap200x1000": random_z_multiknapsack_lp(200, 1000, seed=2),
+        "wide64x400": random_z_multiknapsack_lp(
+            64, 400, row_len=(13, 24), coeff_range=(1, 150), seed=3
+        ),
+    }
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    dp_mismatches = 0
+    dp_max_err = 0.0
+
+    def dp_check(label, dp_args):
+        nonlocal dp_mismatches, dp_max_err
+        got = zs.dp_select(*dp_args)
+        want = zs.dp_select_reference(*dp_args)
+        torch.cuda.synchronize()
+        mis = int((got != want).sum())
+        dp_mismatches += mis
+        dp_max_err = max(dp_max_err, float((got.int() - want.int()).abs().max()))
+        if mis:
+            fail(f"{label}: the DP kernel differs from its plain version "
+                 f"on {mis} of {got.numel()} bits")
+        return got
+
+    def dp_bound(cp, B, R):
+        """Least time of one DP call of B rows and R replicas: the bytes it
+        needs (r read, the chosen set written, the row tables and the
+        slot mask) over the memory rate, or its operations over the
+        float32 rate: per (row, replica) the table's set-up 1 per w; per
+        slot and w the shift test, the add, the compare and two selects
+        5; the argmin over w 4 per w (the range test 2, the compare and
+        the select); the read-out 2 per slot. The table itself stays on
+        chip in an ideal kernel and is not counted."""
+        W, Kr = cp.Wdp, cp.Kr
+        nbytes = 5 * B * Kr * R + 5 * B * Kr + 16 * B
+        ops = B * R * (W * (1 + 5 * Kr + 4) + 2 * Kr)
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / F32_OPS_PER_S * 1e3
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    def dp_timed(dp_args, reps):
+        return dict(
+            ms=timed(lambda a: zs.dp_select_kernel(*a), dp_args, reps),
+            plain_ms=timed(lambda a: zs.dp_select_reference(*a), dp_args, 3),
+        )
+
+    dp_records = []
+    for name, lp in z_instances.items():
+        t = time.monotonic()
+        cp, R, B = compiled(lp)
+        dp_rows = torch.nonzero(cp.dp_row).flatten().to(torch.int32)
+        n_blocks = dp_rows.numel() // B
+        print(f"[{name}] m={cp.m} n={cp.n} Kr={cp.Kr} Wdp={cp.Wdp} "
+              f"Amax={cp.Amax} DP rows {dp_rows.numel()} R={DP_R} B={B} "
+              f"setup {time.monotonic() - t:.1f} s")
+        if not cp.Wdp or n_blocks < 1:
+            fail(f"{name}: no DP rows")
+        for minimize in (True, False):
+            for blk in range(n_blocks):
+                rows_c = dp_rows[blk * B:(blk + 1) * B].contiguous()
+                r = torch.randn((B, cp.Kr, DP_R), generator=gen, device=dev)
+                mask = cp.row_mask[rows_c.long()].contiguous()
+                dp_args = (cp, rows_c, r, mask, minimize)
+                got = dp_check(f"{name} block {blk}", dp_args)
+                if blk == 0 and minimize:
+                    first = dp_args
+        print(f"[{name}] DP kernel bit-exact on {n_blocks} blocks x 2 "
+              f"objectives; chosen share {float(got.float().mean()):.3f}")
+        b_ms, b_by = dp_bound(cp, B, DP_R)
+        rec = dict(instance=name, inputs="random", R=DP_R, B=B, W=cp.Wdp,
+                   Kr=cp.Kr, bound_ms=b_ms, bound_by=b_by,
+                   **dp_timed(first, 20))
+        dp_records.append(rec)
+        print(f"[{name} random] kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        del cp, first, dp_args
+        torch.cuda.empty_cache()
+
+    # ---- phase 5: the Z path: optimize on zknap200x1000
+    # every 37th DP call: 37 is 5 mod the 32 blocks of a sweep, so the
+    # kept inputs spread over the blocks of the order, not its tail only
+    zraw, zres, zcounts, zrate, z_states = run_optimize(
+        z_instances["zknap200x1000"], Z_TIME_LIMIT_S, every=37, keep=6,
+        module=zs, attr="dp_select",
+    )
+    zvalid = bt.is_valid_solution(zraw, zres)
+    if not z_states:
+        fail("zknap200x1000: optimize ran too few sweeps to keep a DP input")
+    zcp = z_states[0][0][0]
+    blocks = -(-zcp.m // zres.block_size)
+    print(f"[optimize zknap200x1000] status {zres.status.name} objective "
+          f"{zres.value} sweeps {zres.loop} R {zres.replicas} "
+          f"B {zres.block_size} replica-sweeps/s {zrate:.1f} "
+          f"launches {zcounts} (blocks per sweep {blocks}) valid {zvalid} "
+          f"duration {zres.duration:.2f} s")
+    if zres.status != bt.ResultStatus.success or not zvalid:
+        fail("Z optimize did not return a valid feasible solution")
+    if not np.isfinite(zres.value):
+        fail("Z optimize returned a non-finite objective")
+    if zcounts["dpselect"] <= 0 or zcounts["dpselect"] != zres.loop * blocks \
+            or zcounts["psweep"]:
+        fail(f"launches {zcounts} vs {zres.loop} sweeps x {blocks} blocks")
+    z_rec = {"objective": zres.value, "sweeps": zres.loop,
+             "R": zres.replicas, "B": zres.block_size,
+             "replica_sweeps_per_s": zrate}
+
+    # ---- phase 6: the DP kernel vs its plain version at the Z path's inputs
+    recs = []
+    for i, st in enumerate(z_states):
+        dp_args = cloned(st)[0]
+        got = dp_check(f"zknap200x1000 captured {i}", dp_args)
+        B, _, R = dp_args[2].shape
+        b_ms, b_by = dp_bound(zcp, B, R)
+        recs.append(dict(bound_ms=b_ms, bound_by=b_by, **dp_timed(dp_args, 50)))
+        print(f"[zknap200x1000 captured {i}] chosen share "
+              f"{float(got.float().mean()):.3f}: kernel {recs[-1]['ms']:.4f} "
+              f"ms, plain {recs[-1]['plain_ms']:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by})")
+    dp_main = {k: sum(r[k] for r in recs) / len(recs)
+               for k in ("ms", "plain_ms", "bound_ms")}
+    dp_main.update(instance="zknap200x1000", inputs="captured", R=R, B=B,
+                   W=zcp.Wdp, Kr=zcp.Kr, states=len(recs),
+                   bound_by=recs[0]["bound_by"])
+    dp_records.insert(0, dp_main)
+    del z_states, zcp
+
+    # ---- phase 7: the kernels line, then the result line
     main = per_instance[0]
     print(json.dumps({"kernels": [{
         "name": "psweep",
@@ -397,6 +554,21 @@ def main() -> int:
         "library_ms": None,
         "instances": per_instance,
         "optimize": optimize_rec,
+    }, {
+        "name": "dpselect",
+        "route": "cuda",
+        "source": "baryonyx_torch/csrc/dpselect.cu",
+        "replaces": "JAX package ops/zsweep.py:125 (_dp_select_pallas)",
+        "launches": zcounts["dpselect"],
+        "max_abs_err": dp_max_err,
+        "mismatches": dp_mismatches,
+        "ms": dp_main["ms"],
+        "plain_ms": dp_main["plain_ms"],
+        "bound_ms": dp_main["bound_ms"],
+        "bound_by": dp_main["bound_by"],
+        "library_ms": None,
+        "instances": dp_records,
+        "optimize": z_rec,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,7 +7,9 @@ The port alone, no jax: on the card run
 The hand-written sweep kernel is held against the plain PyTorch version on
 CUDA tensors, x and remaining bit-exact (the kernel is built with
 --fmad=false, so it rounds as the separate torch ops do), P, pi and S
-within 2e-4 / 2e-4 / 2e-3.
+within 2e-4 / 2e-4 / 2e-3. The knapsack DP kernel (csrc/dpselect.cu) is
+held against its plain version bit for bit on the DP rows of two Z
+instances (table widths 88 and 2048), for both objectives.
 """
 
 import numpy as np
@@ -15,8 +17,13 @@ import pytest
 import torch
 
 import baryonyx_torch as bt
-from baryonyx_torch.generators import random_knapsack_101_lp, random_set_cover_lp
+from baryonyx_torch.generators import (
+    random_knapsack_101_lp,
+    random_set_cover_lp,
+    random_z_multiknapsack_lp,
+)
 from baryonyx_torch.ops import psweep as pw
+from baryonyx_torch.ops import zsweep as zs
 from baryonyx_torch.ops.layout import compile_problem
 from baryonyx_torch.ops.sweep import violated_mask
 from baryonyx_torch.preprocess.fixing import preprocess
@@ -110,3 +117,60 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
             torch.tensor([1, 2], dtype=torch.int32, device=cuda),
             torch.zeros(r, device=cuda),
         )
+
+
+Z_INSTANCES = {
+    # zknap200x1000 (Wdp 88) and a wide-table instance (Wdp 2048)
+    "zknap": lambda: random_z_multiknapsack_lp(200, 1000, seed=2),
+    "wide": lambda: random_z_multiknapsack_lp(
+        64, 400, row_len=(13, 24), coeff_range=(1, 150), seed=3
+    ),
+}
+
+
+def _z_compiled(name, dev):
+    ctx = bt.make_context(0)
+    pb = preprocess(ctx, bt.parse_lp(Z_INSTANCES[name]()))
+    return compile_problem(
+        make_merged_constraints(ctx, pb), len(pb.vars.values), device=dev
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(Z_INSTANCES))
+def test_dp_kernel_matches_plain_version(cuda, name):
+    cp = _z_compiled(name, cuda)
+    dp_rows = torch.nonzero(cp.dp_row).flatten().to(torch.int32)
+    assert cp.Wdp > 0 and dp_rows.numel() >= 8
+    rng = np.random.default_rng(0)
+    for minimize in (True, False):
+        for blk in range(0, min(dp_rows.numel(), 32) - 7, 8):
+            rows_c = dp_rows[blk:blk + 8].contiguous()
+            r = torch.as_tensor(
+                rng.normal(0, 1, (8, cp.Kr, 512)), dtype=torch.float32,
+                device=cuda,
+            )
+            mask = cp.row_mask[rows_c.long()].contiguous()
+            before = zs.dp_select_kernel.launches
+            got = zs.dp_select(cp, rows_c, r, mask, minimize)
+            torch.cuda.synchronize()
+            assert zs.dp_select_kernel.launches == before + 1
+            want = zs.dp_select_reference(cp, rows_c, r, mask, minimize)
+            assert torch.equal(got, want)
+            assert got.any() and not got[mask].all()
+
+
+@pytest.mark.gpu
+def test_dp_kernel_refuses_what_it_does_not_take(cuda):
+    cp = _z_compiled("zknap", cuda)
+    rows_c = torch.nonzero(cp.dp_row).flatten()[:8].to(torch.int32)
+    mask = cp.row_mask[rows_c.long()].contiguous()
+    r = torch.zeros((8, cp.Kr, 64), device=cuda)
+    with pytest.raises(ValueError, match="dpselect"):
+        zs.dp_select(cp, rows_c, r.double(), mask, True)  # wrong dtype
+    with pytest.raises(ValueError, match="dpselect"):
+        zs.dp_select(cp, rows_c.long(), r, mask, True)  # wrong index type
+    with pytest.raises(ValueError, match="dpselect"):
+        zs.dp_select(cp, rows_c, r[:, :-1], mask, True)  # wrong shape
+    with pytest.raises(ValueError, match="dpselect"):
+        zs.dp_select(cp, rows_c, r.transpose(0, 2).contiguous().transpose(0, 2), mask, True)

@@ -8,6 +8,7 @@
   psweep result as the port's own state.
 - The port imports and solves with jax blocked, and names neither jax nor
   the JAX package anywhere in its files or in chip_smoke.py.
+- The same on two Z (integer-factor) instances, through the Z sweep.
 - Without CUDA and without an explicit device the entry points raise;
   what the slice does not cover is refused, never rerouted.
 """
@@ -60,6 +61,36 @@ def test_optimize_cpu_matches_jax_within_band():
     assert bx.is_valid_solution(raw_j, rt)
     assert bx.compute_solution(raw_j, rt) == pytest.approx(rt.value)
     assert abs(rt.value - rj.value) <= BAND * abs(rj.value)
+
+
+# Z instances: a small multiknapsack (enumeration and DP rows) and a
+# 24-variable row of factor 2 (tests/test_z_solver.py's long-row case,
+# past the exact enumeration's 20 variables), whose optimum is 3
+Z_ROW = "minimize\nobj: {}\nst\nc1: {} >= 4\nend\n".format(
+    " + ".join(f"{i + 1} x{i}" for i in range(24)),
+    " + ".join(f"2 x{i}" for i in range(24)),
+)
+Z_LPS = {
+    "zknap24x90": random_z_multiknapsack_lp(24, 90, seed=1),
+    "z_row24": Z_ROW,
+}
+
+
+@pytest.mark.parametrize("name", list(Z_LPS))
+def test_optimize_z_cpu_matches_jax_within_band(name):
+    lp = Z_LPS[name]
+    raw_j = bx.parse_lp(lp)
+    rj = bx.optimize(_ctx(bx), raw_j)
+    rt = bt.optimize(_ctx(bt), bt.parse_lp(lp), device="cpu")
+    assert rj.status == bx.ResultStatus.success
+    assert rt.status == bt.ResultStatus.success
+    assert rt.loop == rj.loop == 200
+    assert "exact" not in rt.method
+    assert bx.is_valid_solution(raw_j, rt)
+    assert bx.compute_solution(raw_j, rt) == pytest.approx(rt.value)
+    assert abs(rt.value - rj.value) <= BAND * abs(rj.value)
+    if name == "z_row24":
+        assert rt.value == rj.value == 3.0
 
 
 def test_convert_round_trip_gives_the_same_psweep():
@@ -149,11 +180,9 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 def test_uncovered_inputs_are_refused():
     ctx = bt.make_context(0)
     ctx.parameters.limit = 10
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        bt.optimize(
-            ctx, bt.parse_lp(random_z_multiknapsack_lp(12, 40, seed=2)),
-            device="cpu",
-        )
+    z_quad = Z_ROW.replace("\nst\n", " + [ 4 x0 * x1 ] / 2\nst\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+        bt.optimize(ctx, bt.parse_lp(z_quad), device="cpu")
     raw = bt.parse_lp(LP)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         bt.solve(bt.make_context(0), raw, device="cpu")
