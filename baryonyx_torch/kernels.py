@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -83,6 +84,35 @@ def build(names: List[str]) -> Dict[str, str]:
             + "\n".join(logs[f] for f in failed)
         )
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler log of the named kernel's present library."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def resource_lines(log: str) -> List[str]:
+    """One line per compiled kernel from a ``-Xptxas -v`` log: its name
+    (template arguments as <0,1,..>), registers, shared and constant
+    memory, stack frame and spills."""
+    out = []
+    name = spill = ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            known = re.search(r"([a-z]+_kernel_[a-z_]+)(?:I((?:L[bi]\d+E)+)E)?", name)
+            if known:
+                name = known.group(1)
+                if known.group(2):
+                    flags = re.findall(r"L[bi](\d+)E", known.group(2))
+                    name += "<" + ",".join(flags) + ">"
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

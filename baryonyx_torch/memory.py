@@ -20,7 +20,9 @@ def estimated_peak_bytes(cp, R: int, itemsize: int = 4, B: int = 8) -> int:
     column-sum contributions and the sweep's keys scratch), each live
     beside a second copy of the state. On Z instances add the Z sweep's
     per-block transients at block size B (ops/zsweep.py): the DP kernel's
-    scratch (the f table and the ceil(Kr/32) mask words), the enumeration
+    scratch (the f table and the ceil(Kr/32) mask words; only its
+    device_table variant allocates it, so this is an upper bound), the
+    enumeration
     scores and their masked copy [B, Amax, R], and the [B, Kr, R] reduced
     costs and chosen sets."""
     transient = 2 * (cp.m * cp.Kr + cp.n * cp.Kc) * R * itemsize

@@ -114,6 +114,20 @@ class CompiledProblem:
     def device(self) -> torch.device:
         return self.row_vars.device
 
+    def rowmeta(self) -> torch.Tensor:
+        """int32[m, 5]: bmin, bmax, neg_count, r_size, is_eq of every row,
+        side by side as the sweep kernel reads them. Built at first use and
+        kept with this instance (``to`` makes a new one)."""
+        meta = self.__dict__.get("_rowmeta")
+        if meta is None:
+            meta = torch.stack(
+                [self.bmin, self.bmax, self.neg_count, self.r_size,
+                 self.is_eq.to(torch.int32)],
+                dim=1,
+            ).to(torch.int32).contiguous()
+            object.__setattr__(self, "_rowmeta", meta)
+        return meta
+
     def to(self, device: DeviceLike) -> "CompiledProblem":
         dev = torch.device(device)
         return dataclasses.replace(

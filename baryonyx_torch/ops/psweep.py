@@ -22,6 +22,8 @@ in the CUDA kernel and in the plain version, so the two agree bit for bit.
 On CUDA tensors ``psweep`` launches the hand-written kernel
 (csrc/psweep.cu) or raises; on CPU tensors it runs the plain version.
 ``psweep_reference`` runs the plain version on any device.
+``launch_plan`` says how the kernel is launched for a shape: which variant,
+how many replicas and slot lanes per CUDA block, how much shared memory.
 
 The sweep updates ``P``, ``pi`` and ``S`` in place and returns a new ``x``
 (callers read the pre-sweep ``x`` afterwards).
@@ -41,9 +43,120 @@ MAX_B = 16  # rows per block: the kernel keeps one (thr, d, dpi) per row
 MAX_KR = 2048  # padded row-length ceiling of the fused path
 # quadratic costs ride a dense [n, n] neighbor matrix: CQ = quad_mat @ x
 QUAD_DENSE_MAX_N = 8192
-WARP = 32  # replicas per CUDA block
+WARP = 32  # R must be a multiple of it on CUDA
 
 _M32 = 0xFFFFFFFF
+
+# the card's limits for one CUDA block (H100)
+SMEM_MAX = 232_448  # bytes of shared memory, static and dynamic together
+SMEM_STATIC = 8192  # kept back for the kernels' static shared memory
+THREADS_MAX = 1024
+# csrc/psweep.cu, "group" variant
+GROUP_THREADS_MAX = 512  # its __launch_bounds__ with the keys in shared memory
+GROUP_THREADS_REGS = 256  # and with the keys in registers
+NQ = 8  # slots per lane whose key, P and variable stay in registers
+NSTAT = 11  # floats of one warp's order statistics in the merge stage
+
+
+class SweepPlan(NamedTuple):
+    """How csrc/psweep.cu is launched for one shape.
+
+    ``variant`` "group": one CUDA block owns ``G`` replicas and has
+    ``Bb * Wr`` warps, warp (b, wr) on row b of the row block; a row has
+    ``Wr * 32 / G`` slot lanes, the CUDA block ``T`` of them, so
+    ``G * T`` threads. ``key_storage`` says where a slot's key waits
+    between phase A and phase B: "registers" (with its P value and
+    variable index), or "shared" (a [Bb][Kr][G] tile). ``s_resident``:
+    the group's S [n][G] stays in shared memory for the whole sweep.
+
+    ``variant`` "replica_thread": one thread per replica, 32 per CUDA
+    block, the keys in a [Bb, Kr, R] device-memory scratch
+    (``key_storage`` "device")."""
+
+    variant: str
+    G: int
+    T: int
+    Wr: int
+    smem_bytes: int  # dynamic shared memory
+    key_storage: str
+    s_resident: bool
+
+    @property
+    def threads(self) -> int:
+        return self.G * self.T
+
+    def grid(self, R: int) -> int:
+        return R // self.G
+
+
+REPLICA_THREAD = SweepPlan("replica_thread", WARP, 1, 0, 0, "device", False)
+
+
+def group_plan(
+    n: int, Kr: int, Bb: int, G: int, Wr: int, key_regs: bool,
+    s_resident: bool = False,
+) -> SweepPlan:
+    """The "group" plan with these choices; ValueError if the card or the
+    kernel cannot take it."""
+    if G < 1 or WARP % G or Wr < 1 or not 1 <= Bb <= MAX_B:
+        raise ValueError(f"psweep plan: bad G {G}, Wr {Wr} or Bb {Bb}")
+    lanes_per_row = Wr * (WARP // G)
+    threads = Bb * Wr * WARP
+    if threads > (GROUP_THREADS_REGS if key_regs else GROUP_THREADS_MAX):
+        raise ValueError(f"psweep plan: {threads} threads")
+    if key_regs and Kr > NQ * lanes_per_row:
+        raise ValueError("psweep plan: the row does not fit the register keys")
+    nbytes = _group_smem_bytes(n, Kr, Bb, G, Wr, key_regs, s_resident)
+    if nbytes + SMEM_STATIC > SMEM_MAX:
+        raise ValueError(f"psweep plan: {nbytes} bytes of shared memory")
+    return SweepPlan(
+        "group", G, Bb * lanes_per_row, Wr, nbytes,
+        "registers" if key_regs else "shared", s_resident,
+    )
+
+
+def _group_smem_bytes(n, Kr, Bb, G, Wr, key_regs, s_resident) -> int:
+    """Dynamic shared memory of the "group" variant: the merge stage of
+    the Wr warps of each row, the key tile, the resident S."""
+    return 4 * (
+        (Bb * Wr * NSTAT * G if Wr > 1 else 0)
+        + (0 if key_regs else Bb * Kr * G)
+        + (n * G if s_resident else 0)
+    )
+
+
+def launch_plan(n: int, Kr: int, R: int, Bb: int) -> SweepPlan:
+    """The plan for a sweep over n variables, rows padded to Kr slots, R
+    replicas and row blocks of Bb rows: every shape ``supports`` admits
+    on CUDA gets one.
+
+    Rows of up to NQ slots per lane keep their keys in registers: with 4
+    replicas per CUDA block and one warp per row (8 slot lanes, no merge
+    across warps) up to Kr 64, else with 8 replicas and as many warps per
+    row as the row needs, while the CUDA block stays within 256 threads.
+    Longer rows use the shared-memory tile at 8 or 4 replicas per CUDA
+    block and as many warps per row as 512 threads allow; where the tile
+    fits at neither, the replica_thread variant. S stays resident where
+    it fits beside the rest. (Measured on scp200x1000 and scpnre500x5000
+    with baryonyx_torch/kernel_tune.py.)"""
+    if R % WARP or not 1 <= Bb <= MAX_B or Kr < 1 or n < 1:
+        raise ValueError(f"psweep plan: bad shape n {n} Kr {Kr} R {R} Bb {Bb}")
+    budget = SMEM_MAX - SMEM_STATIC
+    choices = []
+    wr_regs = GROUP_THREADS_REGS // (WARP * Bb)  # warps per row at most
+    if wr_regs >= 1 and Kr <= NQ * (WARP // 4):
+        choices.append((4, 1, True))
+    wr = -(-Kr // (NQ * (WARP // 8)))
+    if wr <= wr_regs:
+        choices.append((8, wr, True))
+    wr_tile = GROUP_THREADS_MAX // (WARP * Bb)
+    choices += [(8, wr_tile, False), (4, wr_tile, False)]
+    for G, Wr, key_regs in choices:
+        base = _group_smem_bytes(n, Kr, Bb, G, Wr, key_regs, False)
+        if base <= budget:
+            s_resident = base + 4 * n * G <= budget
+            return group_plan(n, Kr, Bb, G, Wr, key_regs, s_resident)
+    return REPLICA_THREAD
 
 
 def supports(cp: CompiledProblem, R: int, dtype, device) -> bool:
@@ -358,18 +471,21 @@ class CudaSweep:
             from baryonyx_torch.kernels import load
 
             fn = load("psweep").psweep_launch
-            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 16 + [
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def __call__(self, inp: SweepInputs) -> None:
+    def __call__(self, inp: SweepInputs, plan: Optional[SweepPlan] = None) -> None:
+        """One sweep on CUDA tensors, launched by ``plan`` (default: the
+        shape's ``launch_plan``)."""
         cp = inp.cp
         dev = inp.P.device
         R = inp.S.shape[1]
         m, n, Kr = cp.m, cp.n, cp.Kr
+        rowmeta = cp.rowmeta()
         checks = [
             (inp.S, (n, R), torch.float32),
             (inp.x, (n, R), torch.int32),
@@ -378,6 +494,7 @@ class CudaSweep:
             (inp.sched, (m, R), torch.bool),
             (inp.order, (inp.order.shape[0],), torch.int32),
             (inp.n_rows, (1,), torch.int32),
+            (rowmeta, (m, 5), torch.int32),
             (cp.row_vars, (m, Kr), torch.int32),
             (cp.row_factor, (m, Kr), torch.float32),
             (inp.cost, (n,), torch.float32),
@@ -399,27 +516,33 @@ class CudaSweep:
                 raise ValueError("psweep kernel: every tensor must be contiguous")
         if R % WARP or inp.order.shape[0] % inp.Bb or not 1 <= inp.Bb <= MAX_B:
             raise ValueError("psweep kernel: R % 32, mp % Bb or Bb out of range")
-        rowmeta = torch.stack(
-            [cp.bmin, cp.bmax, cp.neg_count, cp.r_size, cp.is_eq.to(torch.int32)],
-            dim=1,
-        ).to(torch.int32).contiguous()
-        keys = torch.empty((inp.Bb, Kr, R), dtype=torch.float32, device=dev)
+        if plan is None:
+            plan = launch_plan(n, Kr, R, inp.Bb)
+        group = plan.variant == "group"
+        keys = None
+        if not group:
+            keys = torch.empty((inp.Bb, Kr, R), dtype=torch.float32, device=dev)
         fn = self.load()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             inp.S.data_ptr(), inp.x.data_ptr(), inp.pi.data_ptr(),
-            inp.P.data_ptr(), keys.data_ptr(), inp.sched.data_ptr(),
+            inp.P.data_ptr(), keys.data_ptr() if keys is not None else None,
+            inp.sched.data_ptr(),
             inp.order.data_ptr(), inp.n_rows.data_ptr(), rowmeta.data_ptr(),
             cp.row_vars.data_ptr(), cp.row_factor.data_ptr(),
             inp.cost.data_ptr(),
             inp.CQ.data_ptr() if inp.CQ is not None else None,
             inp.kappa.data_ptr(), inp.amp.data_ptr(), inp.delta.data_ptr(),
             inp.theta.data_ptr(), inp.seed.data_ptr(),
-            m, Kr, R, inp.order.shape[0], inp.Bb, cp.J_bot, cp.J_top,
-            int(cp.all_unit_pos), int(inp.minimize), stream,
+            m, n, Kr, R, inp.order.shape[0], inp.Bb, cp.J_bot, cp.J_top,
+            int(cp.all_unit_pos), int(inp.minimize), int(group), plan.G,
+            plan.Wr, int(plan.key_storage == "registers"),
+            int(plan.s_resident), plan.smem_bytes, stream,
         )
         if err != 0:
-            raise RuntimeError(f"psweep kernel launch failed: CUDA error {err}")
+            raise RuntimeError(
+                f"psweep kernel launch failed: CUDA error {err} ({plan})"
+            )
         self.launches += 1
 
 
@@ -450,7 +573,8 @@ def psweep(
     remaining [R]).
 
     x int32[n, R], P f32[m, Kr, R], pi f32[m, R], cost f32[n],
-    sched bool[m, R], order int32[mp] (sentinel m), kappa/obj_amp f32[R],
+    sched bool[m, R], order int32[mp] (every row at most once, then the
+    sentinel m), kappa/obj_amp f32[R],
     delta/theta scalars or f32[R], seed int32[2] (the tie-noise stream),
     n_rows: rows of ``order`` to process (a device tensor, default all).
     ``S`` carries the merged column sums across sweeps; it is recomputed

@@ -25,17 +25,19 @@ across blocks), replicas on the trailing axis R, as in ops/psweep.py.
 
 ``dp_select`` sends CUDA tensors to the kernel (or raises) and CPU tensors
 to ``dp_select_reference``, the plain version with the kernel's
-arithmetic. Nothing falls back.
+arithmetic. Nothing falls back. ``dp_launch_plan`` says how the kernel is
+launched for a shape.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from baryonyx_torch.ops.layout import CompiledProblem
+from baryonyx_torch.ops.psweep import SMEM_MAX, SMEM_STATIC, THREADS_MAX
 from baryonyx_torch.ops.sweep import violated_mask
 
 DP_BIG = 1e30  # the DP's finite "infinity": every sum it enters stays finite
@@ -67,7 +69,8 @@ def dp_select_reference(
     Per slot s: cand = f[w - a_s] + rq_s (DP_BIG where w - a_s leaves the
     table), taken on strict cand < f; masked slots have rq = DP_BIG. The
     answer is the lowest w in [wlo, whi] with the least f. The same single
-    add and strict compare as the kernel. Returns bool[B, Kr, R]."""
+    add and strict compare as the kernel. A row that is no DP row gets an
+    all-zero set (the sweep discards it). Returns bool[B, Kr, R]."""
     B, Kr, R = r.shape
     W = cp.Wdp
     nw = (Kr + 31) // 32
@@ -111,7 +114,74 @@ def dp_select_reference(
     words = msk.gather(2, wbest[None, :, None, :].expand(nw, B, 1, R))[:, :, 0]
     s_iota = torch.arange(Kr, device=dev)
     bits = (words[s_iota // 32] >> (s_iota % 32)[:, None, None]) & 1  # [Kr, B, R]
-    return bits.permute(1, 0, 2) > 0
+    return (bits.permute(1, 0, 2) > 0) & cp.dp_row[rows][:, None, None]
+
+
+class DPPlan(NamedTuple):
+    """How csrc/dpselect.cu is launched for one shape.
+
+    ``variant`` "shared": one CUDA block owns one row of the block and
+    ``G`` replicas, with ``T`` lanes striding over the table's W entries
+    (``G * T`` threads) and the table in ``smem_bytes`` of shared memory.
+    ``variant`` "device_table": one thread per (row, replica), 32 replicas
+    per CUDA block, the table in a device-memory scratch."""
+
+    variant: str
+    G: int
+    T: int
+    smem_bytes: int  # dynamic shared memory
+
+    @property
+    def threads(self) -> int:
+        return self.G * self.T
+
+    def grid(self, R: int, B: int) -> Tuple[int, int]:
+        return (R // self.G, B)
+
+
+DEVICE_TABLE = DPPlan("device_table", 32, 1, 0)
+DP_ENTRIES = 3  # table entries per thread and slot the plan aims at
+DP_LANES_MAX = 128  # lanes over w: more warps make the slots' barriers dearer
+
+
+def _dp_smem_bytes(W: int, Kr: int, G: int, T: int) -> int:
+    """Dynamic shared memory of the "shared" variant: two f tables and the
+    take words [W][G], the staged reduced costs [Kr][G], the row's
+    factors and live flags [Kr], the argmin's stage and the chosen words."""
+    nw = (Kr + 31) // 32
+    nwarps = G * T // 32
+    return 4 * ((2 + nw) * W * G + Kr * G + 2 * Kr + 2 * nwarps * G + nw * G)
+
+
+def dp_plan(W: int, Kr: int, G: int, T: int) -> DPPlan:
+    """The "shared" plan with these choices; ValueError if the card or the
+    kernel cannot take it."""
+    if G < 1 or 32 % G or T < 1 or (G * T) % 32 or G * T > THREADS_MAX:
+        raise ValueError(f"dpselect plan: bad G {G} or T {T}")
+    nbytes = _dp_smem_bytes(W, Kr, G, T)
+    if nbytes + SMEM_STATIC > SMEM_MAX:
+        raise ValueError(f"dpselect plan: {nbytes} bytes of shared memory")
+    return DPPlan("shared", G, T, nbytes)
+
+
+def dp_launch_plan(W: int, Kr: int, R: int, B: int) -> DPPlan:
+    """The plan for a DP call on a table of W entries, rows of Kr slots, R
+    replicas and B rows: the largest group of replicas (8 at most, and a
+    divisor of R) whose table fits shared memory, with a lane for every
+    DP_ENTRIES entries of the table, up to DP_LANES_MAX lanes; the
+    device_table variant when the table fits at no group size. (Measured
+    at W 88 and W 2048 with baryonyx_torch/kernel_tune.py.)"""
+    if W < 1 or Kr < 1 or R < 1 or B < 1:
+        raise ValueError(f"dpselect plan: bad shape W {W} Kr {Kr} R {R} B {B}")
+    for G in (8, 4, 2, 1):
+        if R % G:
+            continue
+        step = 32 // G  # T in multiples of it makes whole warps
+        want = -(-W // DP_ENTRIES)
+        T = min(DP_LANES_MAX, THREADS_MAX // G, -(-want // step) * step)
+        if _dp_smem_bytes(W, Kr, G, T) + SMEM_STATIC <= SMEM_MAX:
+            return dp_plan(W, Kr, G, T)
+    return DEVICE_TABLE
 
 
 class CudaDPSelect:
@@ -126,7 +196,7 @@ class CudaDPSelect:
             from baryonyx_torch.kernels import load
 
             fn = load("dpselect").dpselect_launch
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
@@ -140,7 +210,10 @@ class CudaDPSelect:
         r: torch.Tensor,
         mask: torch.Tensor,
         minimize: bool,
+        plan: Optional[DPPlan] = None,
     ) -> torch.Tensor:
+        """The selection on CUDA tensors, launched by ``plan`` (default:
+        the shape's ``dp_launch_plan``)."""
         dev = r.device
         B, Kr, R = r.shape
         m, W = cp.m, cp.Wdp
@@ -152,6 +225,7 @@ class CudaDPSelect:
             (rows_c, (B,), torch.int32),
             (r, (B, Kr, R), torch.float32),
             (mask, (B, Kr), torch.bool),
+            (cp.dp_row, (m,), torch.bool),
             (cp.dp_fac, (m, Kr), torch.int32),
             (cp.dp_lo, (m,), torch.int32),
             (cp.dp_blo, (m,), torch.int32),
@@ -165,20 +239,30 @@ class CudaDPSelect:
                 )
             if not t.is_contiguous():
                 raise ValueError("dpselect kernel: every tensor must be contiguous")
-        nw = (Kr + 31) // 32
-        f = torch.empty((B, W, R), dtype=torch.float32, device=dev)
-        words = torch.empty((B, nw, W, R), dtype=torch.int32, device=dev)
+        if plan is None:
+            plan = dp_launch_plan(W, Kr, R, B)
+        shared = plan.variant == "shared"
+        f = words = None
+        if not shared:
+            nw = (Kr + 31) // 32
+            f = torch.empty((B, W, R), dtype=torch.float32, device=dev)
+            words = torch.empty((B, nw, W, R), dtype=torch.int32, device=dev)
         out = torch.empty((B, Kr, R), dtype=torch.bool, device=dev)
         fn = self.load()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             rows_c.data_ptr(), r.data_ptr(), mask.data_ptr(),
-            cp.dp_fac.data_ptr(), cp.dp_lo.data_ptr(), cp.dp_blo.data_ptr(),
-            cp.dp_bhi.data_ptr(), f.data_ptr(), words.data_ptr(),
-            out.data_ptr(), B, Kr, R, W, int(minimize), stream,
+            cp.dp_row.data_ptr(), cp.dp_fac.data_ptr(), cp.dp_lo.data_ptr(),
+            cp.dp_blo.data_ptr(), cp.dp_bhi.data_ptr(),
+            f.data_ptr() if f is not None else None,
+            words.data_ptr() if words is not None else None,
+            out.data_ptr(), B, Kr, R, W, int(minimize), int(shared), plan.G,
+            plan.T, plan.smem_bytes, stream,
         )
         if err != 0:
-            raise RuntimeError(f"dpselect kernel launch failed: CUDA error {err}")
+            raise RuntimeError(
+                f"dpselect kernel launch failed: CUDA error {err} ({plan})"
+            )
         self.launches += 1
         return out
 

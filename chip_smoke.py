@@ -6,7 +6,9 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 baryonyx_torch/csrc, then:
 
-  0. prints the card's name and power limit, and turns TF32 off;
+  0. prints the card's name and power limit, turns TF32 off, and prints
+     what the compiler reports for every kernel (registers, static shared
+     memory, spills);
   1. holds the fused-sweep kernel against its plain PyTorch version on the
      card, 3 sweeps each from one state, on scp200x1000 (at the replica
      batch and row block the optimizer picks) and on the scpnre class
@@ -20,24 +22,35 @@ baryonyx_torch/csrc, then:
      through make_problem and parse_lp, for 10 s — with the launch counters
      set to 0 just before and read just after, and validates the solution;
      then optimize on the scpnre class for a few seconds. Both runs keep
-     copies of the inputs of some of their sweeps;
+     copies of the inputs of some of their sweeps (the main path's last
+     ones, the scpnre run's first ones);
   3. at those main-path sweep inputs, holds the kernel against its plain
-     version once more and times both with CUDA events; the bound counts
-     the bytes that state needs (the scheduled pairs' P, pi, S and x);
+     version once more and times it (its launches captured into one CUDA
+     graph, so the host's time to enqueue them is not in the number), in
+     turns with the first design (the replica_thread variant) and, where
+     the plan keeps S resident in shared memory, with the same plan
+     without that; the plain version is timed with CUDA events; each
+     state's time is printed beside its scheduled share; the bound counts
+     the bytes that state needs (the scheduled pairs' P, pi, S and x). It
+     prints each instance's launch plan and fails if one takes the
+     replica_thread variant;
   4. holds the knapsack DP kernel (csrc/dpselect.cu) against its plain
      PyTorch version, bit for bit, at random reduced costs (R = 512, both
      objectives) on the DP rows of zknap200x1000
      (random_z_multiknapsack_lp(200, 1000, seed=2), table width 88) and of
      a wide-table instance (random_z_multiknapsack_lp(64, 400,
      row_len=(13, 24), coeff_range=(1, 150), seed=3), width 2048), and
-     times both;
+     times both, and the first design (the device_table variant) in turns
+     with the kernel; prints each table's launch plan and fails if one
+     takes the device_table variant;
   5. drives the Z path — baryonyx_torch.optimize on zknap200x1000 through
      make_problem, for 10 s — with the launch counters set to 0 just
      before and read just after: the solution must be valid, and the DP
      launches must equal the blocks the sweeps processed; the run keeps
      copies of the DP inputs of some sweeps;
   6. at those inputs, holds the DP kernel against its plain version again
-     and times both; the bound is the larger of the bytes the selection
+     and times both and the first design; the bound is the larger of the
+     bytes the selection
      needs over the memory rate and its operations over the float32 rate;
   7. prints one JSON line with every kernel's numbers, then the last
      line {"ok": true, "device": {...}}.
@@ -110,12 +123,8 @@ def main() -> int:
     logs = kernels.build(KERNELS)
     print(f"build: {time.monotonic() - t:.1f} s")
     for name in KERNELS:
-        log = logs.get(name)
-        if log is None:
-            log = kernels.library_path(name).with_suffix(".log").read_text()
-        for line in dict.fromkeys(log.splitlines()):
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in kernels.resource_lines(logs.get(name) or kernels.build_log(name)):
+            print(f"  {name}: {line}")
 
     import numpy as np
 
@@ -145,20 +154,31 @@ def main() -> int:
         R, B = replica_batch(ctx, cp, ctx.parameters, dev)
         return cp, R, B
 
+    def max_err_of(u, v):
+        """max |u - v|, where entries that are the same infinity or both
+        NaN in u and v count as equal (a long optimize run can drive a
+        replica's duals out of range; both versions must then agree on
+        where). NaN if one is NaN where the other is not."""
+        same = (u == v) | (u.isnan() & v.isnan())
+        return float(torch.where(same, 0.0, (u - v).abs()).max())
+
     def compare(a, b):
         """x and remaining mismatch counts and the P/pi/S max |err| of two
         sweep results (x, P, pi, S, ..., remaining)."""
-        errs = {k: float((u - v).abs().max())
+        errs = {k: max_err_of(u, v)
                 for k, u, v in zip(("P", "pi", "S"), a[1:4], b[1:4])}
         return int((a[0] != b[0]).sum()), int((a[-1] != b[-1]).sum()), errs
 
     def check(label, a, b):
         x_mis, rem_mis, errs = compare(a, b)
+        odd = sum(int((~torch.isfinite(t)).sum()) for t in a[1:4])
         print(f"[{label}] x mismatches {x_mis}, remaining mismatches "
-              f"{rem_mis}, max|err| {errs}")
+              f"{rem_mis}, max|err| {errs}"
+              + (f", {odd} non-finite entries in the plain version's P, pi, S"
+                 if odd else ""))
         if x_mis or rem_mis:
             fail(f"{label}: kernel x/remaining differ from the plain version")
-        if any(errs[k] > TOL[k] for k in TOL):
+        if not all(errs[k] <= TOL[k] for k in TOL):
             fail(f"{label}: kernel P/pi/S outside tolerance: {errs}")
         return max(errs.values())
 
@@ -192,17 +212,21 @@ def main() -> int:
 
     class Capture:
         """Wraps a kernel's dispatcher for an optimize run: keeps copies of
-        the inputs of every ``every``-th call (the last ``keep`` of them)."""
+        the inputs of every ``every``-th call, the last ``keep`` of them
+        or, with ``first``, the first ``keep``."""
 
-        def __init__(self, real, every: int, keep: int):
+        def __init__(self, real, every: int, keep: int, first: bool = False):
             self.every = every
+            self.keep = keep
+            self.first = first
             self.states = collections.deque(maxlen=keep)
             self.calls = 0
             self.real = real
 
         def __call__(self, *a, **kw):
             self.calls += 1
-            if self.calls % self.every == 0:
+            full = self.first and len(self.states) == self.keep
+            if self.calls % self.every == 0 and not full:
                 self.states.append(cloned((a, kw)))
             return self.real(*a, **kw)
 
@@ -212,7 +236,7 @@ def main() -> int:
         return tuple(c(v) for v in a), {k: c(v) for k, v in kw.items()}
 
     def run_optimize(lp: str, limit: float, every: int, keep: int,
-                     module=pw, attr="psweep"):
+                     module=pw, attr="psweep", first=False):
         """optimize on ``lp`` for ``limit`` s, with ``module.attr`` wrapped
         by a Capture; every launch counter is set to 0 just before and
         read just after. Returns (raw, result, launches by kernel,
@@ -227,7 +251,7 @@ def main() -> int:
 
         ctx.register(update=on_update)
         raw = bt.make_problem(ctx, io.StringIO(lp))
-        cap = Capture(getattr(module, attr), every, keep)
+        cap = Capture(getattr(module, attr), every, keep, first)
         setattr(module, attr, cap)
         try:
             for k in counters.values():
@@ -284,17 +308,42 @@ def main() -> int:
         share = pairs / max(1, cp.m_real * R)
         return (t_b, "bytes", share) if t_b >= t_o else (t_o, "operations", share)
 
-    def timed(fn, inp, n):
-        fn(inp)  # warm-up
+    def timed(fn, inp, n, graph=False):
+        """ms per call of fn(inp) over n calls after one warm-up. With
+        ``graph`` the n calls are captured into one CUDA graph and its
+        replay is timed: device time, without the host's time to enqueue
+        (a kernel's wrapper takes longer on the host than a fast kernel on
+        the card)."""
+        fn(inp)
         torch.cuda.synchronize()
+
+        def run():
+            for _ in range(n):
+                fn(inp)
+
+        if graph:
+            captured = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(captured):
+                run()
+            run = captured.replay
+            run()
+            torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        for _ in range(n):
-            fn(inp)
+        run()
         t1.record()
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / n
+
+    def in_turns(fns, inp, n):
+        """Device ms per call of each function, timed in turns, there and
+        back (a, b, c, c, b, a): the mean of each one's two times."""
+        order = list(fns) + list(reversed(fns))
+        ms = collections.defaultdict(list)
+        for name in order:
+            ms[name].append(timed(fns[name], inp, n, graph=True))
+        return {name: sum(v) / len(v) for name, v in ms.items()}
 
     # ---- phase 1: kernel vs plain version on the card, from x = 0
     instances = {
@@ -358,8 +407,14 @@ def main() -> int:
                     "R": result.replicas, "B": result.block_size,
                     "replica_sweeps_per_s": rate}
 
+    # the first states of this run, not the last: hundreds of sweeps on
+    # this class drive the duals of many replicas out of float32's range,
+    # and there the plain version differs from the kernel by design (it
+    # adds P - P = NaN to S for a pair that is not scheduled, which the
+    # kernel skips)
     raw2, res2, counts2, rate2, nre_states = run_optimize(
-        instances["scpnre500x5000"], NRE_TIME_LIMIT_S, every=4, keep=3
+        instances["scpnre500x5000"], NRE_TIME_LIMIT_S, every=16, keep=3,
+        first=True,
     )
     print(f"[optimize scpnre500x5000] status {res2.status.name} objective "
           f"{res2.value} sweeps {res2.loop} R {res2.replicas} "
@@ -375,37 +430,54 @@ def main() -> int:
         if not states:
             fail(f"{name}: optimize ran too few sweeps to keep a state")
         recs = []
+        cp = states[0][0][0]
+        R, B = states[0][0][3].shape[-1], states[0][1]["block_size"]
+        plan = pw.launch_plan(cp.n, cp.Kr, R, B)
+        print(f"[{name}] launch plan: {plan}, {plan.threads} threads x "
+              f"{plan.grid(R)} CUDA blocks")
+        if plan.variant != "group":
+            fail(f"{name}: the launch plan takes the {plan.variant} variant")
+        fns = {"ms": lambda inp: pw.psweep_kernel(inp),
+               "old_ms": lambda inp: pw.psweep_kernel(inp, pw.REPLICA_THREAD)}
+        if plan.s_resident:
+            s_in_l2 = pw.group_plan(cp.n, cp.Kr, B, plan.G, plan.Wr,
+                                    plan.key_storage == "registers", False)
+            fns["s_in_l2_ms"] = lambda inp: pw.psweep_kernel(inp, s_in_l2)
         for i, st in enumerate(states):
             a = pw.psweep_reference(*cloned(st)[0], **cloned(st)[1])
             b = pw.psweep(*cloned(st)[0], **cloned(st)[1])
             max_err = max(max_err, check(f"{name} state {i}", a, b))
             mismatches += compare(a, b)[0]
             del a, b
-            cp = st[0][0]
             inp = prepared(st)
             b_ms, b_by, share = bound(cp, inp)
             recs.append(dict(
-                ms=timed(pw.psweep_kernel, inp, reps),
+                **in_turns(fns, inp, reps),
                 plain_ms=timed(pw._sweep_plain, prepared(st), 1),
                 bound_ms=b_ms, bound_by=b_by, sched_share=share,
                 n_rows=int(inp.n_rows),
             ))
+            r = recs[-1]
+            both = (f" (S resident; {r['s_in_l2_ms']:.4f} ms with S in L2)"
+                    if plan.s_resident else "")
             print(f"[{name} state {i}] scheduled share {share:.4f} rows "
-                  f"{recs[-1]['n_rows']}: kernel {recs[-1]['ms']:.4f} ms, "
-                  f"plain {recs[-1]['plain_ms']:.4f} ms, bound "
+                  f"{r['n_rows']}: kernel {r['ms']:.4f} ms{both}, first design "
+                  f"{r['old_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                   f"{b_ms:.5f} ms ({b_by})")
             del inp
         mean = {k: sum(r[k] for r in recs) / len(recs)
-                for k in ("ms", "plain_ms", "bound_ms", "sched_share")}
+                for k in recs[0] if k not in ("bound_by", "n_rows")}
         by = collections.Counter(r["bound_by"] for r in recs).most_common(1)
         per_instance.append(dict(
-            instance=name, R=st[0][3].shape[-1], B=st[1]["block_size"],
-            m=cp.m, n=cp.n, Kr=cp.Kr,
-            states=len(recs), bound_by=by[0][0], **mean,
+            instance=name, R=R, B=B, m=cp.m, n=cp.n, Kr=cp.Kr,
+            plan=plan._asdict(), states=len(recs), bound_by=by[0][0], **mean,
+            by_state=[{k: r[k] for k in ("sched_share", "ms", "old_ms")}
+                      for r in recs],
         ))
         print(f"[{name}] mean over {len(recs)} states: kernel "
-              f"{mean['ms']:.4f} ms/sweep, plain {mean['plain_ms']:.4f} "
-              f"ms/sweep, bound {mean['bound_ms']:.5f} ms, scheduled share "
+              f"{mean['ms']:.4f} ms/sweep, first design {mean['old_ms']:.4f} "
+              f"ms/sweep, plain {mean['plain_ms']:.4f} ms/sweep, bound "
+              f"{mean['bound_ms']:.5f} ms, scheduled share "
               f"{mean['sched_share']:.4f}")
         del states[:]
         torch.cuda.empty_cache()
@@ -452,8 +524,12 @@ def main() -> int:
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     def dp_timed(dp_args, reps):
+        """The DP kernel and its first design in turns, then the plain
+        version."""
+        fns = {"ms": lambda a: zs.dp_select_kernel(*a),
+               "old_ms": lambda a: zs.dp_select_kernel(*a, zs.DEVICE_TABLE)}
         return dict(
-            ms=timed(lambda a: zs.dp_select_kernel(*a), dp_args, reps),
+            **in_turns(fns, dp_args, reps),
             plain_ms=timed(lambda a: zs.dp_select_reference(*a), dp_args, 3),
         )
 
@@ -468,6 +544,11 @@ def main() -> int:
               f"setup {time.monotonic() - t:.1f} s")
         if not cp.Wdp or n_blocks < 1:
             fail(f"{name}: no DP rows")
+        dplan = zs.dp_launch_plan(cp.Wdp, cp.Kr, DP_R, B)
+        print(f"[{name}] launch plan: {dplan}, {dplan.threads} threads x "
+              f"{dplan.grid(DP_R, B)} CUDA blocks")
+        if dplan.variant != "shared":
+            fail(f"{name}: the launch plan takes the {dplan.variant} variant")
         for minimize in (True, False):
             for blk in range(n_blocks):
                 rows_c = dp_rows[blk * B:(blk + 1) * B].contiguous()
@@ -481,11 +562,12 @@ def main() -> int:
               f"objectives; chosen share {float(got.float().mean()):.3f}")
         b_ms, b_by = dp_bound(cp, B, DP_R)
         rec = dict(instance=name, inputs="random", R=DP_R, B=B, W=cp.Wdp,
-                   Kr=cp.Kr, bound_ms=b_ms, bound_by=b_by,
-                   **dp_timed(first, 20))
+                   Kr=cp.Kr, plan=dplan._asdict(), bound_ms=b_ms,
+                   bound_by=b_by, **dp_timed(first, 20))
         dp_records.append(rec)
-        print(f"[{name} random] kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        print(f"[{name} random] kernel {rec['ms']:.4f} ms, first design "
+              f"{rec['old_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
         del cp, first, dp_args
         torch.cuda.empty_cache()
 
@@ -525,12 +607,14 @@ def main() -> int:
         B, _, R = dp_args[2].shape
         b_ms, b_by = dp_bound(zcp, B, R)
         recs.append(dict(bound_ms=b_ms, bound_by=b_by, **dp_timed(dp_args, 50)))
-        print(f"[zknap200x1000 captured {i}] chosen share "
-              f"{float(got.float().mean()):.3f}: kernel {recs[-1]['ms']:.4f} "
-              f"ms, plain {recs[-1]['plain_ms']:.4f} ms, bound {b_ms:.6f} ms "
-              f"({b_by})")
+        dp_rows_in = int(zcp.dp_row[dp_args[1].long()].sum())
+        print(f"[zknap200x1000 captured {i}] {dp_rows_in} DP rows of {B}, "
+              f"chosen share {float(got.float().mean()):.3f}: kernel "
+              f"{recs[-1]['ms']:.4f} ms, first design "
+              f"{recs[-1]['old_ms']:.4f} ms, plain "
+              f"{recs[-1]['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     dp_main = {k: sum(r[k] for r in recs) / len(recs)
-               for k in ("ms", "plain_ms", "bound_ms")}
+               for k in ("ms", "old_ms", "plain_ms", "bound_ms")}
     dp_main.update(instance="zknap200x1000", inputs="captured", R=R, B=B,
                    W=zcp.Wdp, Kr=zcp.Kr, states=len(recs),
                    bound_by=recs[0]["bound_by"])

@@ -7,9 +7,14 @@ The port alone, no jax: on the card run
 The hand-written sweep kernel is held against the plain PyTorch version on
 CUDA tensors, x and remaining bit-exact (the kernel is built with
 --fmad=false, so it rounds as the separate torch ops do), P, pi and S
-within 2e-4 / 2e-4 / 2e-3. The knapsack DP kernel (csrc/dpselect.cu) is
-held against its plain version bit for bit on the DP rows of two Z
-instances (table widths 88 and 2048), for both objectives.
+within 2e-4 / 2e-4 / 2e-3: with the keys in registers and in the
+shared-memory tile, at row blocks of 4, 2 and 16 rows, with a row length
+that the slot lanes do not divide, with +-1 factors and with a quadratic
+objective, and in the first design (the replica_thread variant). The
+knapsack DP kernel (csrc/dpselect.cu) is held against its plain version
+bit for bit on the DP rows of two Z instances (table widths 88 and 2048),
+for both objectives, on a block that mixes DP rows with others, and in its
+first design (the device_table variant).
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import torch
 import baryonyx_torch as bt
 from baryonyx_torch.generators import (
     random_knapsack_101_lp,
+    random_qsap_lp,
     random_set_cover_lp,
     random_z_multiknapsack_lp,
 )
@@ -40,7 +46,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _chain(fn, cp, cost, push, keep, minimize, dev):
+def _chain(fn, cp, cost, push, keep, minimize, dev, block_size=4, quad_mat=None):
     """SWEEPS sweeps from x = 0: push lanes schedule every row (as the
     optimizer's push phase does), the others their violated rows; a random
     30% of the (row, replica) pairs sit out."""
@@ -58,26 +64,65 @@ def _chain(fn, cp, cost, push, keep, minimize, dev):
             torch.full((R,), 0.15, device=dev), 0.01, 0.5,
             torch.tensor([17 + it, -3], dtype=torch.int32, device=dev),
             torch.zeros(R, device=dev), n_rows=any_row.sum(),
-            minimize=minimize, block_size=4, S=S, S_fresh=it != 0,
+            minimize=minimize, block_size=block_size, quad_mat=quad_mat,
+            S=S, S_fresh=it != 0,
         )
         sched = (viol | push) & keep
     torch.cuda.synchronize()
     return x, P, pi, S, rem, first_share
 
 
+def _with_plan(make_plan):
+    """``psweep`` with the kernel launched by ``make_plan(cp, Bb)``."""
+
+    def fn(*a, n_rows=None, minimize=True, block_size=8, quad_mat=None, S=None,
+           S_fresh=None):
+        inp = pw._prepare(*a, n_rows, minimize, block_size, quad_mat, S, S_fresh)
+        pw.psweep_kernel(inp, make_plan(inp.cp, inp.Bb))
+        return pw._finish(inp)
+
+    return fn
+
+
+def _ragged_plan(cp, Bb):
+    """Keys in registers, with a number of slot lanes per row (4 per warp
+    at 8 replicas per CUDA block) that does not divide Kr."""
+    Wr = next(w for w in (3, 4, 5) if cp.Kr % (4 * w))
+    return pw.group_plan(cp.n, cp.Kr, Bb, 8, Wr, True, True)
+
+
+# name: (LP text, rows per block, plan (None: launch_plan's), its key storage)
+SWEEP_CASES = {
+    "scp": (lambda: random_set_cover_lp(60, 240, 0.05, seed=3), 4, None,
+            "registers"),
+    "knapsack101": (lambda: random_knapsack_101_lp(16, 40, seed=3), 4, None,
+                    "registers"),
+    "block16": (lambda: random_set_cover_lp(60, 240, 0.05, seed=3), 16, None,
+                "shared"),
+    "ragged_lanes": (lambda: random_set_cover_lp(60, 240, 0.05, seed=3), 2,
+                     _ragged_plan, "registers"),
+    # rows of about 80 variables: too long for the register keys
+    "tile": (lambda: random_set_cover_lp(40, 400, 0.2, seed=4), 4, None,
+             "shared"),
+    "quad": (lambda: random_qsap_lp(12, 6, seed=2), 4, None, "registers"),
+    "first_design": (lambda: random_set_cover_lp(60, 240, 0.05, seed=3), 4,
+                     lambda cp, Bb: pw.REPLICA_THREAD, "device"),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["scp", "knapsack101"])
+@pytest.mark.parametrize("name", list(SWEEP_CASES))
 def test_kernel_matches_plain_version(cuda, name):
-    lp = (
-        random_set_cover_lp(60, 240, 0.05, seed=3)
-        if name == "scp"
-        else random_knapsack_101_lp(16, 40, seed=3)
-    )
+    make_lp, block_size, make_plan, key_storage = SWEEP_CASES[name]
     ctx = bt.make_context(0)
-    pb = preprocess(ctx, bt.parse_lp(lp))
+    pb = preprocess(ctx, bt.parse_lp(make_lp()))
     cp = compile_problem(
-        make_merged_constraints(ctx, pb), len(pb.vars.values), device=cuda
+        make_merged_constraints(ctx, pb), len(pb.vars.values),
+        qelements=pb.objective.qelements, device=cuda,
     )
+    plan = (make_plan or (lambda cp, Bb: pw.launch_plan(cp.n, cp.Kr, R, Bb)))(
+        cp, block_size)
+    assert plan.key_storage == key_storage
     rng = np.random.default_rng(0)
     push = torch.as_tensor(rng.random(R) < 0.5, device=cuda)[None, :]
     keep = torch.as_tensor(rng.random((cp.m, R)) < 0.7, device=cuda)
@@ -85,10 +130,17 @@ def test_kernel_matches_plain_version(cuda, name):
         1.0 + np.arange(cp.n) + 0.01 * ((np.arange(cp.n) * 37) % 61),
         dtype=torch.float32, device=cuda,
     )
-    minimize = name == "scp"
+    quad_mat = None
+    if name == "quad":
+        assert cp.has_quad
+        q = rng.normal(0, 0.05, (cp.n, cp.n))
+        quad_mat = torch.as_tensor(q + q.T, dtype=torch.float32, device=cuda)
+    minimize = name != "knapsack101"
     before = pw.psweep_kernel.launches
-    a = _chain(pw.psweep_reference, cp, cost, push, keep, minimize, cuda)
-    b = _chain(pw.psweep, cp, cost, push, keep, minimize, cuda)
+    a = _chain(pw.psweep_reference, cp, cost, push, keep, minimize, cuda,
+               block_size, quad_mat)
+    b = _chain(_with_plan(make_plan) if make_plan else pw.psweep, cp, cost,
+               push, keep, minimize, cuda, block_size, quad_mat)
     assert pw.psweep_kernel.launches == before + SWEEPS
     # phase B ran for a real share of the pairs
     assert a[5] >= 0.25
@@ -137,11 +189,16 @@ def _z_compiled(name, dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["planned", "first_design"])
 @pytest.mark.parametrize("name", list(Z_INSTANCES))
-def test_dp_kernel_matches_plain_version(cuda, name):
+def test_dp_kernel_matches_plain_version(cuda, name, variant):
     cp = _z_compiled(name, cuda)
     dp_rows = torch.nonzero(cp.dp_row).flatten().to(torch.int32)
     assert cp.Wdp > 0 and dp_rows.numel() >= 8
+    plan = zs.dp_launch_plan(cp.Wdp, cp.Kr, 512, 8)
+    assert plan.variant == "shared"
+    if variant == "first_design":
+        plan = zs.DEVICE_TABLE
     rng = np.random.default_rng(0)
     for minimize in (True, False):
         for blk in range(0, min(dp_rows.numel(), 32) - 7, 8):
@@ -152,12 +209,38 @@ def test_dp_kernel_matches_plain_version(cuda, name):
             )
             mask = cp.row_mask[rows_c.long()].contiguous()
             before = zs.dp_select_kernel.launches
-            got = zs.dp_select(cp, rows_c, r, mask, minimize)
+            got = zs.dp_select_kernel(cp, rows_c, r, mask, minimize, plan)
             torch.cuda.synchronize()
             assert zs.dp_select_kernel.launches == before + 1
             want = zs.dp_select_reference(cp, rows_c, r, mask, minimize)
             assert torch.equal(got, want)
             assert got.any() and not got[mask].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["planned", "first_design"])
+def test_dp_kernel_on_a_block_that_mixes_dp_rows_with_others(cuda, variant):
+    """The rows of a sweep's block as they come: the DP rows get their
+    set, the others an all-zero one, as in the plain version."""
+    cp = _z_compiled("zknap", cuda)
+    plan = None if variant == "planned" else zs.DEVICE_TABLE
+    rng = np.random.default_rng(1)
+    mixed = 0
+    for blk in range(0, 64, 8):
+        rows_c = torch.arange(blk, blk + 8, dtype=torch.int32, device=cuda)
+        is_dp = cp.dp_row[rows_c.long()]
+        mixed += int(0 < int(is_dp.sum()) < 8)
+        r = torch.as_tensor(
+            rng.normal(0, 1, (8, cp.Kr, 512)), dtype=torch.float32, device=cuda
+        )
+        mask = cp.row_mask[rows_c.long()].contiguous()
+        for minimize in (True, False):
+            got = zs.dp_select_kernel(cp, rows_c, r, mask, minimize, plan)
+            torch.cuda.synchronize()
+            want = zs.dp_select_reference(cp, rows_c, r, mask, minimize)
+            assert torch.equal(got, want)
+            assert not got[~is_dp].any()
+    assert mixed >= 4
 
 
 @pytest.mark.gpu
