@@ -41,8 +41,9 @@ class InitPolicyType(enum.Enum):
 class FloatType(enum.Enum):
     """Solver arithmetic precision (reference: core:341-346).
 
-    The reference offers float/double/long-double; the port runs float32
-    only (its fused sweep kernel is float32) and refuses float64.
+    The reference offers float/double/long-double; here float32 is the
+    fast path (the hand-written kernels are float32) and float64 runs
+    through the general sweep.
     """
 
     float32 = 0

@@ -50,6 +50,9 @@ class Result:
     # sweep never ran, e.g. exact enumeration)
     replicas: int = 0
     block_size: int = 0
+    # sweeps of the main loop and the push rounds that solve mode ran
+    # (``loop`` is the sweep that found the best solution)
+    sweeps: int = 0
 
     def __bool__(self) -> bool:
         return self.status == ResultStatus.success

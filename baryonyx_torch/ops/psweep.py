@@ -210,7 +210,7 @@ def _prepare(
         raise NotImplementedError(
             "the fused sweep does not cover this instance (float32 only, "
             "no Z rows, sort-free selection, Kr <= MAX_KR; R % 32 == 0 on "
-            "CUDA); the general sweep is ROADMAP Queue 1 item 2"
+            "CUDA); ops/sweep.py:sweep takes what this one does not"
         )
     if (quad_mat is not None) != cp.has_quad:
         raise ValueError("quad_mat must be given exactly for quadratic problems")
@@ -419,7 +419,9 @@ def _sweep_plain(inp: SweepInputs) -> None:
             else:
                 upd = a_i * upd
                 bits = sgn * a_i > 0
-            S[v] = S[v] + upd
+            # a pair that is not scheduled adds nothing, whatever its P
+            # holds (the kernel skips it)
+            S[v] = S[v] + torch.where(valid[i], upd, 0.0)
             x[v] = torch.where(valid[i], bits.to(torch.int32), x[v])
             pi[k] = pi[k] + dpi[i]
 

@@ -38,14 +38,15 @@ import torch
 
 from baryonyx_torch.ops.layout import CompiledProblem
 from baryonyx_torch.ops.psweep import SMEM_MAX, SMEM_STATIC, THREADS_MAX
-from baryonyx_torch.ops.sweep import violated_mask
+from baryonyx_torch.ops.sweep import block_costs, violated_mask, write_rows
 
 DP_BIG = 1e30  # the DP's finite "infinity": every sum it enters stays finite
 
 
-def _vec(v, device) -> torch.Tensor:
-    """A scalar or per-replica hyperparameter as a float32 tensor."""
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+def _vec(v, device, dtype) -> torch.Tensor:
+    """A scalar or per-replica hyperparameter as a tensor of the state's
+    type."""
+    return torch.as_tensor(v, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -388,9 +389,11 @@ def z_sweep(
     obj_amp,  # f32[R] or scalar
     minimize: bool = True,
     block_size: int = 8,
+    quad_fac: Optional[torch.Tensor] = None,  # f32[n, Qmax] normalized factors
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pass over the rows of ``order`` of a ℤ problem, for every
     replica. Returns (x, P, pi, new_violated [m, R], remaining [R]).
+    ``quad_fac`` adds the quadratic cost terms of the set neighbors.
 
     Every block of ``order`` is processed: rows past the scheduled ones
     are unscheduled for every replica and change nothing, so the sweep
@@ -405,10 +408,10 @@ def z_sweep(
     dev = P.device
     dtype = P.dtype
     R = pi.shape[-1]
-    theta = _vec(theta, dev)
-    delta = _vec(delta, dev)
-    kappa = _vec(kappa, dev)
-    amp = _vec(obj_amp, dev)
+    theta = _vec(theta, dev, dtype)
+    delta = _vec(delta, dev, dtype)
+    kappa = _vec(kappa, dev, dtype)
+    amp = _vec(obj_amp, dev, dtype)
     d_const = kappa / (1 - kappa) + delta  # [R] (reference: local_affect :361)
     big = float("inf") if minimize else float("-inf")
     inf = float("inf")
@@ -431,7 +434,7 @@ def z_sweep(
         P_rows = P[rl]  # [B, Kr, R]
 
         gvars = torch.where(mask, vars0, 0).long()
-        cx = cost[gvars][:, :, None]  # [B, Kr, 1]
+        cx = block_costs(cp, cost, quad_fac, gvars, x)  # [B, Kr, 1 or R]
         # own-row decay correction (P[k, :] *= theta before reduced costs)
         Sv = S[gvars] + a3 * (theta - 1) * P_rows
         P_dec = theta * P_rows
@@ -500,20 +503,12 @@ def z_sweep(
         vmask = valid[:, None, :] & live
         P2 = torch.where(vmask, P2, P_rows)
 
-        P_w = P2
-        if mp > m:
-            # sentinel rows clamp onto row m-1 and write back its block-entry
-            # P: give them the real row's P2 when it is in the block too
-            same = (rows_c[:, None] == rows_c[None, :]) & row_ok[None, :]
-            owner = torch.where(
-                same.any(dim=1), same.to(torch.int8).argmax(dim=1), iota_b
-            )
-            P_w = P2[owner]
-        P.index_copy_(0, rl, P_w)
+        write_rows(P, rows_c, row_ok, P2, mp > m)
         pi.index_add_(0, rl, dpi)  # dpi is 0 on sentinel rows
 
         sidx = torch.where(mask & row_ok[:, None], vars0, n).reshape(-1).long()
-        dS = a3 * (dpi[:, None, :] + (P2 - P_rows))
+        # nothing from a pair that is not scheduled, whatever its P holds
+        dS = torch.where(vmask, a3 * (dpi[:, None, :] + (P2 - P_rows)), 0.0)
         S.index_add_(0, sidx, dS.reshape(-1, R))
 
         # x: the later row of the block wins (prio * 2 + bit, max-reduced)

@@ -24,12 +24,16 @@ def _prepare(ctx: Context, raw: RawProblem) -> Problem:
 
 
 def solve(ctx: Context, raw: RawProblem, device: DeviceLike = None) -> Result:
-    """reference: lpcore.cpp:88-98. Not ported yet."""
-    resolve_device(device)
-    raise NotImplementedError(
-        "solve mode is not ported to the PyTorch solver yet (ROADMAP.md "
-        "Queue 1 item 7)"
-    )
+    """reference: lpcore.cpp:88-98. Runs on CUDA unless ``device="cpu"``;
+    raises when CUDA is missing and no device is given."""
+    dev = resolve_device(device)
+    if ctx.start_cb:
+        ctx.start_cb(ctx.parameters)
+    ctx.parameters = ctx.parameters.validated()
+    pb = _prepare(ctx, raw)
+    from baryonyx_torch.solver.solve import solve_compiled
+
+    return solve_compiled(ctx, pb, device=dev)
 
 
 def optimize(ctx: Context, raw: RawProblem, device: DeviceLike = None) -> Result:

@@ -17,7 +17,12 @@ import numpy as np
 import torch
 
 from baryonyx_torch.core.model import Problem
-from baryonyx_torch.core.params import ConstraintOrder, CostNormType
+from baryonyx_torch.core.params import (
+    ConstraintOrder,
+    CostNormType,
+    InitPolicyType,
+    SolverParameters,
+)
 from baryonyx_torch.core.result import Result
 from baryonyx_torch.ops.layout import CompiledProblem
 from baryonyx_torch.ops.sweep import activities
@@ -194,6 +199,25 @@ def init_pre_solve(
     return x
 
 
+def initial_x(
+    params: SolverParameters,
+    c_orig: np.ndarray,
+    constraints: List[MergedConstraint],
+    minimize: bool,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """Solve-mode initialization: policy then Bernoulli(init_policy_random)
+    bit inversion (reference: itm-solver-common.hpp:99-123)."""
+    if params.init_policy == InitPolicyType.bastert:
+        x = init_bastert(c_orig, minimize)
+    elif params.init_policy == InitPolicyType.pessimistic_solve:
+        x = init_pre_solve(c_orig, constraints, minimize, rng, 1.0, optimistic=False)
+    else:
+        x = init_pre_solve(c_orig, constraints, minimize, rng, 1.0, optimistic=True)
+    flip = rng.random(len(x)) < params.init_policy_random
+    return np.where(flip, 1 - x, x).astype(np.int32)
+
+
 def dual_bound(
     cp, pi: np.ndarray, c_norm: np.ndarray, minimize: bool
 ) -> float:
@@ -260,9 +284,9 @@ def make_order(
     aggregate their keys over replicas.
 
     ``static_policy``: when the policy is known and is not ``cycle``, only
-    that policy's inputs are computed. Otherwise every policy's order is
-    built and ``order_code`` (a device int tensor) picks one, with no host
-    sync."""
+    that policy's inputs are computed and ``order_code`` is not read (it
+    may be None). Otherwise every policy's order is built and
+    ``order_code`` (a device int tensor) picks one, with no host sync."""
     m = cp.m
     dev = cp.device
     iota = torch.arange(m, dtype=torch.int32, device=dev)

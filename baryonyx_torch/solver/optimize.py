@@ -6,10 +6,11 @@ phase, sharing one solution population under a mutex
 (reference: itm-optimizer-common.hpp:620-751 optimize_functor,
 :776-908 optimize_problem). Here each "thread" is a replica on the trailing
 axis R of every state tensor: one evolution step advances every replica by
-one sweep (the fused sweep of ops/psweep.py, or ops/zsweep.py's for
-instances with integer factors) and runs its per-replica restart state
-machine; population insertion, crossover and mutation are batched tensor
-ops inside the same step.
+one sweep (the fused sweep of ops/psweep.py where it applies, else the
+general sweep of ops/sweep.py; ops/zsweep.py's for instances with integer
+factors) and runs its per-replica restart state machine; population
+insertion, crossover and mutation are batched tensor ops inside the same
+step.
 
 Replica phases: ANNEAL (kappa-annealed feasibility run), PUSH (one
 objective-amplified sweep), PUSH_ITER (recovery sweeps after a push, kappa
@@ -19,7 +20,9 @@ or population crossover + mutation (reference: best_solution_recorder::
 reinit, :528-554). P and pi persist across restarts.
 
 A step never waits for the device: every per-step quantity (the schedule,
-the row count, the order code, the tie-noise seed) stays on the device,
+the row count, the order code, the tie-noise seed) stays on the device
+(the general sweep walks every block of the order instead of reading the
+row count),
 and the host loop only fetches one small stats vector per chunk.
 
 Deviations from the reference, on purpose:
@@ -54,7 +57,7 @@ from baryonyx_torch.memory import estimated_peak_bytes
 from baryonyx_torch.ops import psweep as pw
 from baryonyx_torch.ops import zsweep as zs
 from baryonyx_torch.ops.layout import CompiledProblem, compile_problem
-from baryonyx_torch.ops.sweep import violated_mask
+from baryonyx_torch.ops.sweep import sweep, violated_mask
 from baryonyx_torch.preprocess.merge import make_merged_constraints
 from baryonyx_torch.solver import common
 from baryonyx_torch.solver.population import (
@@ -74,9 +77,9 @@ INT_MAX = 2**31 - 1
 
 class ReplicaState(NamedTuple):
     x: torch.Tensor  # int32[n, R]
-    P: torch.Tensor  # f32[m, Kr, R]
-    pi: torch.Tensor  # f32[m, R]
-    S: torch.Tensor  # f32[n, R] — carried merged column sums
+    P: torch.Tensor  # f[m, Kr, R]
+    pi: torch.Tensor  # f[m, R]
+    S: torch.Tensor  # f[n, R] — carried merged column sums
     viol: torch.Tensor  # bool[m, R]
     kappa: torch.Tensor  # f32[R]
     kappa_start: torch.Tensor  # f32[R]
@@ -113,6 +116,17 @@ class EvolveInputs(NamedTuple):
     minimize: bool
     block_size: int
     order_policy: Optional[ConstraintOrder] = None
+    random_solver: bool = False
+
+
+def fused_sweep_applies(
+    cp: CompiledProblem, R: int, dtype, device, random_solver: bool
+) -> bool:
+    """Does a 0/1 or ±1 instance run the fused sweep (ops/psweep.py)? Not
+    what it does not take (float64, the full sort, a replica count off a
+    multiple of 32 on CUDA), and not the random solver: those run the
+    general sweep (ops/sweep.py)."""
+    return not random_solver and pw.supports(cp, R, dtype, device)
 
 
 def one_step(ev: EvolveInputs, state: OptState) -> OptState:
@@ -167,6 +181,10 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
     order2 = order[torch.argsort((~padded).to(torch.int8), stable=True)]
 
     if cp.has_z:
+        if ev.random_solver:
+            # the reference's dispatch has no random solver for Z problems
+            # (itm.hpp:181-200 raises internal_error)
+            raise NotImplementedError("random solver for Z problems")
         # the Z sweep walks every block (no row count read on the host)
         # and keeps no column sums across sweeps
         x, P, pi, viol, remaining = zs.z_sweep(
@@ -175,6 +193,15 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
             block_size=B,
         )
         S = rs.S
+    elif not fused_sweep_applies(cp, R, dtype, dev, ev.random_solver):
+        # the general sweep, over every block of the order (no row count
+        # read on the host)
+        x, P, pi, S, viol, remaining = sweep(
+            cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
+            hp["delta"], hp["theta"], gen, amp, minimize=minimize,
+            block_size=B, random_solver=ev.random_solver, S=rs.S,
+            S_fresh=(state.sweeps % 16) != 0,
+        )
     else:
         n_rows = padded.sum(dtype=torch.int32)
         seed = torch.randint(
@@ -380,13 +407,17 @@ def replica_batch(
     """The replica batch R and the row block size the optimizer runs
     with: on CUDA the largest of (2048, 4), (1024, 4), (1024, 8) the
     fused sweep takes (an explicit thread count or block size wins); Z
-    instances keep ``default_replicas`` and the requested block size, as
-    the JAX package does. Then R is halved while the state overflows the
-    device budget."""
-    dtype = torch.float32
+    instances, and those the general sweep runs, keep ``default_replicas``
+    and the requested block size, as the JAX package does. Then R is
+    halved while the state overflows the device budget."""
+    f64 = params.float_type == FloatType.float64
+    dtype = torch.float64 if f64 else torch.float32
     R = default_replicas(params, device)
     block_size = params.block_size
-    if not cp.has_z and params.thread <= 0 and device.type == "cuda":
+    fused = not cp.has_z and fused_sweep_applies(
+        cp, R, dtype, device, params.solver == SolverType.random
+    )
+    if fused and params.thread <= 0 and device.type == "cuda":
         # grow the replica batch to the largest the fused sweep takes;
         # honor an explicit user block_size
         user_B = params.block_size != SolverParameters().block_size
@@ -396,18 +427,16 @@ def replica_batch(
                 R = cand_R
                 block_size = bs
                 break
-    if not cp.has_z and not pw.supports(cp, R, dtype, device):
-        _refuse(
-            f"this instance at R={R} (Kr={cp.Kr}; R % 32 on CUDA)",
-            "Queue 1 item 2, the general sweep",
-        )
 
     # size the replica batch by the device budget; past it at R=128 the
     # JAX package shards rows across devices, which is not ported
     budget = device_budget_bytes(device)
     if budget is not None:
         def peak(R):
-            return estimated_peak_bytes(cp, R, B=block_size)
+            return estimated_peak_bytes(
+                cp, R, itemsize=8 if f64 else 4, B=block_size,
+                general_sweep=not fused and not cp.has_z,
+            )
 
         while peak(R) > budget and R > 128:
             R //= 2
@@ -518,13 +547,11 @@ def optimize_compiled(
     dev = resolve_device(device)
     params = ctx.parameters
     minimize = pb.type == ObjectiveType.minimize
-    if params.float_type == FloatType.float64:
-        _refuse("float64", "Queue 1 item 2, the general sweep")
-    if params.solver == SolverType.random:
-        _refuse("the random solver", "Queue 1 item 2, the general sweep")
     if params.checkpoint_path:
         _refuse("checkpointing", "Queue 1 item 10")
-    dtype = torch.float32
+    f64 = params.float_type == FloatType.float64
+    dtype = torch.float64 if f64 else torch.float32
+    use_random = params.solver == SolverType.random
 
     ret = Result(method="optimize")
     n = len(pb.vars.values)
@@ -570,10 +597,12 @@ def optimize_compiled(
         return ret
     if cp.has_quad:
         _refuse("a quadratic objective", "Queue 1 item 9")
-    if not cp.has_z and not cp.sel_reduction_ok:
-        _refuse(
-            "an instance whose selection needs the full sort",
-            "Queue 1 item 2, the general sweep",
+    if cp.has_z and use_random:
+        raise NotImplementedError("random solver for Z problems")
+    if cp.has_z and cp.Wdp and f64 and dev.type == "cuda":
+        raise NotImplementedError(
+            "float64 on a CUDA device for an instance whose long integer "
+            "rows go to the knapsack DP kernel, which is float32"
         )
     cost_orig_real = common.build_cost_vector(pb, n)
     cost_norm_real = common.normalize_costs(cost_orig_real, params.cost_norm, rng)
@@ -654,7 +683,8 @@ def optimize_compiled(
             push_iters,
         )
     def f32(v) -> float:
-        return float(np.float32(v))
+        # rounded to the solver's type, as the sweep computes with it
+        return float(v) if f64 else float(np.float32(v))
 
     hp = dict(
         delta=f32(delta),
@@ -770,6 +800,7 @@ def optimize_compiled(
         minimize=minimize,
         block_size=block_size,
         order_policy=params.order,
+        random_solver=use_random,
     )
 
     # Stopping: with a time limit, run until it expires (reference:
@@ -797,10 +828,11 @@ def optimize_compiled(
 
     # the kernels build at first use: keep that out of the time budget
     if dev.type == "cuda":
-        if not cp.has_z:
+        if cp.has_z:
+            if cp.Wdp:
+                zs.dp_select_kernel.load()
+        elif fused_sweep_applies(cp, R, dtype, dev, use_random):
             pw.psweep_kernel.load()
-        elif cp.Wdp:
-            zs.dp_select_kernel.load()
     budget_t0 = time.monotonic()
     chunk = max(1, params.chunk_size)
 

@@ -1,4 +1,5 @@
-"""Where one optimize step's time goes on a CUDA device.
+"""Where one step's time goes on a CUDA device, in optimize and in solve
+mode.
 
     python -m baryonyx_torch.step_profile [--seed N] [--out DIR]
 
@@ -15,6 +16,12 @@ the device time per step summed over all kernels and over the instance's
 hand-written kernel, the device idle share (1 - device time / wall time),
 and the ten kernels and the ten host ops that take the most time in the
 traced chunk.
+
+Then ``solve`` (one replica, default parameters) on the same two
+instances: its sweeps from the 20th on, of the annealed loop and the push
+rounds as they come, 80 untraced for the wall time per sweep and the
+next 80 traced (40 and 40 on zknap200x1000); the same numbers per sweep,
+and how many of each window's sweeps were push sweeps over every row.
 """
 
 from __future__ import annotations
@@ -40,6 +47,10 @@ INSTANCES = {
         lambda: random_z_multiknapsack_lp(200, 1000, seed=2), 25, "dpselect_kernel"
     ),
 }
+
+
+# solve mode: sweeps skipped before the windows, sweeps per window
+SOLVE_WINDOWS = {"scp200x1000": (20, 80), "zknap200x1000": (20, 40)}
 
 
 def _device_us(evt) -> float:
@@ -83,6 +94,16 @@ def profile(name: str, seed: int, card: str) -> dict:
     wall_s = calls[2][0] - calls[1][0]
     if calls[2][1] - calls[1][1] != steps:
         raise SystemExit("step_profile: chunks of unequal length")
+    return dict(
+        card=card, instance=name, mode="optimize", R=result.replicas,
+        B=result.block_size, traced_chunk_wall_ms=traced_s * 1e3,
+        **_summary(prof, steps, wall_s, kernel),
+    )
+
+
+def _summary(prof, steps: int, wall_s: float, kernel: str) -> dict:
+    """Per-step numbers of a traced window of ``steps`` steps, beside the
+    wall time ``wall_s`` of as many untraced steps."""
     events = prof.key_averages()
     # device activity only (kernels, copies): an aten op's own row repeats
     # the time of the kernels it launched
@@ -101,13 +122,8 @@ def profile(name: str, seed: int, card: str) -> dict:
     device_us = sum(t[1] for t in dev)
     kernel_us = sum(t[1] for t in dev if kernel in t[0])
     return dict(
-        card=card,
-        instance=name,
         kernel=kernel,
-        R=result.replicas,
-        B=result.block_size,
         chunk_steps=steps,
-        traced_chunk_wall_ms=traced_s * 1e3,
         step_wall_ms=wall_s * 1e3 / steps,
         device_ms_per_step=device_us / 1e3 / steps,
         kernel_ms_per_step=kernel_us / 1e3 / steps,
@@ -116,6 +132,64 @@ def profile(name: str, seed: int, card: str) -> dict:
         kernel_share_of_wall=kernel_us / 1e6 / wall_s,
         top_device=[dict(name=k, ms=v / 1e3, count=c) for k, v, c in dev[:10]],
         top_host=[dict(name=k, ms=v / 1e3, count=c) for k, v, c in host[:10]],
+    )
+
+
+class _Done(Exception):
+    """The traced window is over: nothing more of the solve is needed."""
+
+
+def profile_solve(name: str, seed: int, card: str) -> dict:
+    """The same numbers for solve mode's sweeps: ``solver.solve._step`` is
+    wrapped to mark the windows (the device is drained at each mark)."""
+    from baryonyx_torch.solver import solve as sv
+
+    lp, _, kernel = INSTANCES[name]
+    skip, steps = SOLVE_WINDOWS[name]
+    prof = torch.profiler.profile(
+        activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ],
+    )
+    real = sv._step
+    marks = {}
+    calls = 0
+    pushes = [0, 0]  # objective-amplified sweeps (over every row) per window
+
+    def step(*a, **kw):
+        nonlocal calls
+        if calls in (skip, skip + steps, skip + 2 * steps):
+            torch.cuda.synchronize()
+            marks[calls] = time.monotonic()
+            if calls == skip + steps:
+                prof.start()
+            elif calls == skip + 2 * steps:
+                prof.stop()
+                raise _Done
+        if calls >= skip and a[8] is not None:
+            pushes[calls >= skip + steps] += 1
+        calls += 1
+        return real(*a, **kw)
+
+    ctx = bt.make_context(0)
+    ctx.parameters.seed = seed
+    ctx.parameters.time_limit = 120.0
+    raw = bt.make_problem(ctx, io.StringIO(lp()))
+    sv._step = step
+    try:
+        bt.solve(ctx, raw)
+        raise SystemExit(f"step_profile: solve on {name} ran only {calls} sweeps")
+    except _Done:
+        pass
+    finally:
+        sv._step = real
+    wall_s = marks[skip + steps] - marks[skip]
+    return dict(
+        card=card, instance=name, mode="solve", R=1,
+        B=ctx.parameters.block_size, push_sweeps_untraced=pushes[0],
+        push_sweeps_traced=pushes[1],
+        **_summary(prof, steps, wall_s, kernel),
     )
 
 
@@ -132,8 +206,10 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(card)
     runs = []
-    for name in INSTANCES:
-        out = profile(name, args.seed, card)
+    for fn, name in [(profile, n) for n in INSTANCES] + [
+        (profile_solve, n) for n in INSTANCES
+    ]:
+        out = fn(name, args.seed, card)
         runs.append(out)
         for k, v in out.items():
             if k not in ("top_device", "top_host"):

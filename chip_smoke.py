@@ -52,7 +52,27 @@ baryonyx_torch/csrc, then:
      and times both and the first design; the bound is the larger of the
      bytes the selection
      needs over the memory rate and its operations over the float32 rate;
-  7. prints one JSON line with every kernel's numbers, then the last
+  7. holds the DP kernel against its plain version at one replica, the
+     shape solve mode gives it (both Z instances, both objectives, bit for
+     bit), prints its launch plan there and times it;
+  8. runs the general sweep (ops/sweep.py:sweep, plain PyTorch ops) on the
+     card and on the CPU from the same inputs and the same injected tie
+     noise, 3 sweeps at R = 32 in float32, on scp200x1000 and on the same
+     instance with two cardinality rows appended (whose selection takes the
+     full sort): x and remaining equal, P, pi and S within 1e-5 absolute
+     plus 1e-5 relative;
+  9. drives solve mode — baryonyx_torch.solve on scp200x1000, default
+     parameters, 20 s — and then on zknap200x1000 (10 s): status success, a
+     solution the numpy oracle accepts; on the Z instance the DP launches
+     must equal sweeps x blocks, and neither run may launch the fused
+     sweep;
+ 10. drives baryonyx_torch.optimize for 5 s on the cardinality instance,
+     which the fused sweep does not take: a valid solution, no launch of
+     the fused sweep kernel;
+ 11. runs the command line in-process (baryonyx_torch.cli.main) on an LP
+     file in a temporary directory, solve mode, --limit 200: exit code 0, a
+     .sol file that --check then calls valid;
+ 12. prints one JSON line with every kernel's numbers, then the last
      line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line. Without a CUDA device, or
@@ -63,19 +83,26 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SWEEPS = 3
-TIME_LIMIT_S = 10.0  # the optimize budget of the main-path run
+TIME_LIMIT_S = 6.0  # the optimize budget of the main-path run
 NRE_TIME_LIMIT_S = 6.0  # the optimize budget of the scpnre run
-Z_TIME_LIMIT_S = 10.0  # the optimize budget of the Z-path run
+Z_TIME_LIMIT_S = 6.0  # the optimize budget of the Z-path run
+SOLVE_TIME_LIMIT_S = 20.0  # solve on scp200x1000
+Z_SOLVE_TIME_LIMIT_S = 10.0  # solve on zknap200x1000
+FALLBACK_TIME_LIMIT_S = 5.0  # optimize through the general sweep
+SWEEP_R = 32  # replicas of the general sweep's card-against-CPU check
+SWEEP_TOL = 1e-5  # absolute plus relative, on P, pi and S
 DP_R = 512  # replicas of the DP parity phase (the Z path's default R)
 KERNELS = ["psweep", "dpselect"]
 TOL = {"P": 2e-4, "pi": 2e-4, "S": 2e-3}
@@ -136,7 +163,7 @@ def main() -> int:
     from baryonyx_torch.ops import psweep as pw
     from baryonyx_torch.ops import zsweep as zs
     from baryonyx_torch.ops.layout import compile_problem
-    from baryonyx_torch.ops.sweep import violated_mask
+    from baryonyx_torch.ops.sweep import SweepNoise, sweep, violated_mask
     from baryonyx_torch.preprocess.merge import make_merged_constraints
     from baryonyx_torch.solver import common
     from baryonyx_torch.solver.api import _prepare
@@ -409,9 +436,7 @@ def main() -> int:
 
     # the first states of this run, not the last: hundreds of sweeps on
     # this class drive the duals of many replicas out of float32's range,
-    # and there the plain version differs from the kernel by design (it
-    # adds P - P = NaN to S for a pair that is not scheduled, which the
-    # kernel skips)
+    # where an error bound on P, pi and S says little
     raw2, res2, counts2, rate2, nre_states = run_optimize(
         instances["scpnre500x5000"], NRE_TIME_LIMIT_S, every=16, keep=3,
         first=True,
@@ -621,7 +646,212 @@ def main() -> int:
     dp_records.insert(0, dp_main)
     del z_states, zcp
 
-    # ---- phase 7: the kernels line, then the result line
+    # ---- phase 7: the DP kernel at one replica, solve mode's shape
+    dp_r1_records = []
+    for name, lp in z_instances.items():
+        cp, _, B = compiled(lp)
+        dp_rows = torch.nonzero(cp.dp_row).flatten().to(torch.int32)
+        n_blocks = dp_rows.numel() // B
+        dplan = zs.dp_launch_plan(cp.Wdp, cp.Kr, 1, B)
+        print(f"[{name} R=1] launch plan: {dplan}, {dplan.threads} threads x "
+              f"{dplan.grid(1, B)} CUDA blocks")
+        if dplan.variant != "shared":
+            fail(f"{name} R=1: the launch plan takes the {dplan.variant} variant")
+        for minimize in (True, False):
+            for blk in range(n_blocks):
+                rows_c = dp_rows[blk * B:(blk + 1) * B].contiguous()
+                r = torch.randn((B, cp.Kr, 1), generator=gen, device=dev)
+                mask = cp.row_mask[rows_c.long()].contiguous()
+                dp_args = (cp, rows_c, r, mask, minimize)
+                dp_check(f"{name} R=1 block {blk}", dp_args)
+                if blk == 0 and minimize:
+                    first = dp_args
+        b_ms, b_by = dp_bound(cp, B, 1)
+        rec = dict(instance=name, inputs="random", R=1, B=B, W=cp.Wdp,
+                   Kr=cp.Kr, plan=dplan._asdict(), bound_ms=b_ms,
+                   bound_by=b_by, **dp_timed(first, 50))
+        dp_r1_records.append(rec)
+        print(f"[{name} R=1] DP kernel bit-exact on {n_blocks} blocks x 2 "
+              f"objectives: kernel {rec['ms']:.4f} ms, first design "
+              f"{rec['old_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.7f} ms ({b_by})")
+        del cp, first, dp_args
+    dp_records += dp_r1_records
+
+    # ---- phase 8: the general sweep on the card against itself on the CPU
+    def cardinality_lp(lp: str) -> str:
+        """``lp`` plus two rows `sum of 40 variables = 10`: their selection
+        reads ranks that no sort-free split covers."""
+        names = list(bt.parse_lp(lp).vars.names)
+        rows = "".join(
+            f"card{i}: " + " + ".join(names[i * 40:(i + 1) * 40]) + " = 10\n"
+            for i in range(2)
+        )
+        head, tail = lp.split("binary\n", 1)
+        return head + rows + "binary\n" + tail
+
+    instances["scp200x1000+card"] = cardinality_lp(instances["scp200x1000"])
+
+    def sweep_chain(cp, cost, push, noise, B):
+        """SWEEPS general sweeps from x = 0 on cp's device, scheduled as
+        run_chain schedules them, the tie noise injected."""
+        d = cp.device
+        R = SWEEP_R
+        x = torch.zeros((cp.n, R), dtype=torch.int32, device=d)
+        P = torch.zeros((cp.m, cp.Kr, R), device=d)
+        pi = torch.zeros((cp.m, R), device=d)
+        S = None
+        sched = violated_mask(cp, x) | push.to(d)
+        pad = torch.full((-cp.m % B,), cp.m, dtype=torch.int32, device=d)
+        for it in range(SWEEPS):
+            any_row = sched.any(dim=1)
+            order = torch.argsort((~any_row).to(torch.int8), stable=True)
+            order = torch.cat([order.to(torch.int32), pad])  # sentinel rows
+            x, P, pi, S, viol, rem = sweep(
+                cp, x, P, pi, cost.to(d), sched, order, 0.15,
+                0.01, 0.5, None, 0.0, n_rows=int(any_row.sum()),
+                block_size=B, S=S, S_fresh=it != 0,
+                noise=SweepNoise(noise[it].to(d)),
+            )
+            sched = viol | push.to(d)
+        return x, P, pi, S, rem
+
+    sweep_recs = []
+    for name, full_sort in (("scp200x1000", False), ("scp200x1000+card", True)):
+        ctx = bt.make_context(0)
+        ctx.parameters = ctx.parameters.validated()
+        pb = _prepare(ctx, bt.parse_lp(instances[name]))
+        cp_cpu = compile_problem(
+            make_merged_constraints(ctx, pb), len(pb.vars.values), device="cpu"
+        )
+        if cp_cpu.sel_reduction_ok == full_sort:
+            fail(f"{name}: sel_reduction_ok is {cp_cpu.sel_reduction_ok}")
+        cp_dev = cp_cpu.to(dev)
+        B = ctx.parameters.block_size
+        n = cp_cpu.n
+        cpu_gen = torch.Generator().manual_seed(args.seed)
+        cost = torch.as_tensor(
+            (1.0 + np.arange(n) + 0.01 * ((np.arange(n) * 37) % 61)) / (n + 1.0),
+            dtype=torch.float32,
+        )
+        push = (torch.rand(SWEEP_R, generator=cpu_gen) < 0.5)[None, :]
+        noise = torch.rand(
+            (SWEEPS, -(-cp_cpu.m // B), B, cp_cpu.Kr, SWEEP_R), generator=cpu_gen
+        )
+        t = time.monotonic()
+        a = sweep_chain(cp_cpu, cost, push, noise, B)
+        t_cpu = time.monotonic() - t
+        sweep_chain(cp_dev, cost, push, noise, B)  # warm-up
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        b = sweep_chain(cp_dev, cost, push, noise, B)
+        torch.cuda.synchronize()
+        t_dev = time.monotonic() - t
+        b = [v.cpu() for v in b]
+        x_mis = int((a[0] != b[0]).sum())
+        rem_mis = int((a[4] != b[4]).sum())
+        errs = {}
+        for k, u, v in zip(("P", "pi", "S"), a[1:4], b[1:4]):
+            errs[k] = float((u - v).abs().max())
+            if not torch.allclose(v, u, rtol=SWEEP_TOL, atol=SWEEP_TOL):
+                fail(f"{name}: the general sweep's {k} on the card is outside "
+                     f"{SWEEP_TOL} of the CPU's (max |err| {errs[k]})")
+        moved = float((b[1][: cp_cpu.m_real] != 0).any(dim=1).float().mean())
+        print(f"[sweep {name}] {'full sort' if full_sort else 'sort-free'} "
+              f"m={cp_cpu.m} Kr={cp_cpu.Kr} R={SWEEP_R} B={B}: x mismatches "
+              f"{x_mis}, remaining mismatches {rem_mis}, max|err| {errs}, pairs "
+              f"with a moved P {moved:.4f}; wall {t_dev / SWEEPS * 1e3:.1f} ms "
+              f"per sweep on the card, {t_cpu / SWEEPS * 1e3:.1f} ms on the CPU")
+        if x_mis or rem_mis:
+            fail(f"{name}: the general sweep differs between the card and the CPU")
+        if moved < 0.5:
+            fail(f"{name}: the general sweep moved too little to check")
+        sweep_recs.append(dict(instance=name, full_sort=full_sort, R=SWEEP_R,
+                               B=B, max_abs_err=errs,
+                               card_wall_ms_per_sweep=t_dev / SWEEPS * 1e3))
+        del cp_cpu, cp_dev, a, b
+
+    # ---- phase 9: solve mode on scp200x1000 and on zknap200x1000
+    def run_entry(label, lp, limit, entry):
+        """``entry`` (bt.solve or bt.optimize) on ``lp`` for ``limit`` s
+        through make_problem, every launch counter set to 0 just before and
+        read just after; the result must be a valid feasible solution."""
+        ctx = bt.make_context(4)
+        ctx.parameters.seed = args.seed
+        ctx.parameters.time_limit = limit
+        raw = bt.make_problem(ctx, io.StringIO(lp))
+        for k in counters.values():
+            k.launches = 0
+        t = time.monotonic()
+        res = entry(ctx, raw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        counts = {name: k.launches for name, k in counters.items()}
+        ok = bool(res.solutions) and bt.is_valid_solution(raw, res)
+        sweeps = res.sweeps if entry is bt.solve else res.loop
+        value = res.value if res.solutions else float("nan")
+        print(f"[{label}] status {res.status.name} objective {value} "
+              f"sweeps {sweeps} (best at {res.loop}) wall {wall:.2f} s "
+              f"{wall / max(sweeps, 1) * 1e3:.3f} ms per sweep launches "
+              f"{counts} valid {ok}")
+        if res.status != bt.ResultStatus.success or not ok:
+            fail(f"{label}: no valid feasible solution")
+        if not np.isfinite(value) or sweeps <= 0:
+            fail(f"{label}: objective {value} after {sweeps} sweeps")
+        rec = {"objective": value, "sweeps": sweeps, "wall_s": wall,
+               "ms_per_sweep": wall / sweeps * 1e3, "launches": counts}
+        return res, counts, rec
+
+    _, counts, solve_rec = run_entry(
+        "solve scp200x1000", instances["scp200x1000"], SOLVE_TIME_LIMIT_S,
+        bt.solve)
+    if counts["psweep"] or counts["dpselect"]:
+        fail(f"solve scp200x1000 launched a hand-written kernel: {counts}")
+
+    zcp1, _, _ = compiled(z_instances["zknap200x1000"])
+    zres1, zcounts1, z_solve_rec = run_entry(
+        "solve zknap200x1000", z_instances["zknap200x1000"],
+        Z_SOLVE_TIME_LIMIT_S, bt.solve)
+    zblocks = -(-zcp1.m // bt.SolverParameters().block_size)
+    print(f"[solve zknap200x1000] {zres1.sweeps} sweeps x {zblocks} blocks = "
+          f"{zres1.sweeps * zblocks}, DP launches {zcounts1['dpselect']}")
+    if zcounts1["dpselect"] != zres1.sweeps * zblocks or zcounts1["psweep"]:
+        fail(f"launches {zcounts1} vs {zres1.sweeps} sweeps x {zblocks} blocks")
+    del zcp1
+
+    # ---- phase 10: optimize through the general sweep
+    fres, fcounts, fallback_rec = run_entry(
+        "optimize scp200x1000+card", instances["scp200x1000+card"],
+        FALLBACK_TIME_LIMIT_S, bt.optimize)
+    fallback_rec.update(R=fres.replicas, B=fres.block_size)
+    print(f"[optimize scp200x1000+card] R {fres.replicas} B {fres.block_size}")
+    if fcounts["psweep"] or fcounts["dpselect"]:
+        fail(f"the general-sweep route launched a hand-written kernel: {fcounts}")
+
+    # ---- phase 11: the command line, in-process
+    from baryonyx_torch.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lp_path = Path(tmp) / "scp200x1000.lp"
+        lp_path.write_text(instances["scp200x1000"])
+        rc = cli_main(["--quiet", "--limit", "200", "--time-limit", "5",
+                       "--seed", str(args.seed), str(lp_path)])
+        sols = list(Path(tmp).glob("scp200x1000.lp-*.sol"))
+        if rc != 0 or len(sols) != 1:
+            fail(f"the command line returned {rc} and wrote {len(sols)} .sol files")
+        if not sols[0].read_text().startswith("\\ solver..........: baryonyx-torch"):
+            fail("the .sol file's header does not name baryonyx-torch")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = cli_main(["--quiet", "--check", str(sols[0]), str(lp_path)])
+        said = said.getvalue().strip()
+        print(f"[cli] solve wrote {sols[0].name}; --check: "
+              f"{said.splitlines()[0].split(': ')[-1]}, "
+              f"{said.splitlines()[-1]}")
+        if rc != 0 or ": valid" not in said:
+            fail(f"--check did not call the command line's .sol valid: {said}")
+
+    # ---- phase 12: the kernels line, then the result line
     main = per_instance[0]
     print(json.dumps({"kernels": [{
         "name": "psweep",
@@ -629,6 +859,9 @@ def main() -> int:
         "source": "baryonyx_torch/csrc/psweep.cu",
         "replaces": "JAX package ops/psweep.py:225 (_make_kernel)",
         "launches": launches,
+        "launches_by_path": {"optimize scp200x1000": launches,
+                             "solve scp200x1000": solve_rec["launches"]["psweep"],
+                             "optimize scp200x1000+card": fcounts["psweep"]},
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": main["ms"],
@@ -644,6 +877,8 @@ def main() -> int:
         "source": "baryonyx_torch/csrc/dpselect.cu",
         "replaces": "JAX package ops/zsweep.py:125 (_dp_select_pallas)",
         "launches": zcounts["dpselect"],
+        "launches_by_path": {"optimize zknap200x1000": zcounts["dpselect"],
+                             "solve zknap200x1000": zcounts1["dpselect"]},
         "max_abs_err": dp_max_err,
         "mismatches": dp_mismatches,
         "ms": dp_main["ms"],
@@ -653,7 +888,9 @@ def main() -> int:
         "library_ms": None,
         "instances": dp_records,
         "optimize": z_rec,
-    }]}))
+        "solve": z_solve_rec,
+    }], "general_sweep": sweep_recs, "solve": solve_rec,
+        "optimize_general_sweep": fallback_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,10 @@ that the slot lanes do not divide, with +-1 factors and with a quadratic
 objective, and in the first design (the replica_thread variant). The
 knapsack DP kernel (csrc/dpselect.cu) is held against its plain version
 bit for bit on the DP rows of two Z instances (table widths 88 and 2048),
-for both objectives, on a block that mixes DP rows with others, and in its
-first design (the device_table variant).
+for both objectives, on a block that mixes DP rows with others, in its
+first design (the device_table variant), and at 1 and 3 replicas (solve
+mode's shape). Kernel and plain version also agree, S bit for bit, at a
+state with an infinite P on pairs that are not scheduled.
 """
 
 import numpy as np
@@ -257,3 +259,87 @@ def test_dp_kernel_refuses_what_it_does_not_take(cuda):
         zs.dp_select(cp, rows_c, r[:, :-1], mask, True)  # wrong shape
     with pytest.raises(ValueError, match="dpselect"):
         zs.dp_select(cp, rows_c, r.transpose(0, 2).contiguous().transpose(0, 2), mask, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 3])
+@pytest.mark.parametrize("name", list(Z_INSTANCES))
+def test_dp_kernel_at_one_and_three_replicas(cuda, name, replicas):
+    """Solve mode calls the DP at one replica; three divide by no group
+    size but 1 either. Both take the shared variant with G = 1."""
+    cp = _z_compiled(name, cuda)
+    dp_rows = torch.nonzero(cp.dp_row).flatten().to(torch.int32)
+    plan = zs.dp_launch_plan(cp.Wdp, cp.Kr, replicas, 8)
+    assert plan.variant == "shared" and plan.G == 1
+    rng = np.random.default_rng(replicas)
+    for minimize in (True, False):
+        for blk in range(0, min(dp_rows.numel(), 32) - 7, 8):
+            rows_c = dp_rows[blk:blk + 8].contiguous()
+            r = torch.as_tensor(
+                rng.normal(0, 1, (8, cp.Kr, replicas)), dtype=torch.float32,
+                device=cuda,
+            )
+            mask = cp.row_mask[rows_c.long()].contiguous()
+            before = zs.dp_select_kernel.launches
+            got = zs.dp_select(cp, rows_c, r, mask, minimize)
+            torch.cuda.synchronize()
+            assert zs.dp_select_kernel.launches == before + 1
+            want = zs.dp_select_reference(cp, rows_c, r, mask, minimize)
+            assert torch.equal(got, want)
+            assert got.any() and not got[mask].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["planned", "first_design"])
+def test_kernel_and_plain_version_agree_at_a_nonfinite_P(cuda, variant):
+    """A (row, replica) pair that is not scheduled changes nothing, even
+    where its P is infinite: the kernel skips it and the plain version
+    adds nothing for it. S, pi, x equal bit for bit; P too."""
+    ctx = bt.make_context(0)
+    pb = preprocess(ctx, bt.parse_lp(random_set_cover_lp(60, 240, 0.05, seed=3)))
+    cp = compile_problem(
+        make_merged_constraints(ctx, pb), len(pb.vars.values), device=cuda
+    )
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(
+        (rng.random((cp.n, R)) < 0.2).astype(np.int32), device=cuda
+    )
+    sched = torch.as_tensor(rng.random((cp.m, R)) < 0.7, device=cuda)
+    k_row, k_all = 3, 9  # one pair of a scheduled row; a row nobody schedules
+    sched[k_row, 5] = False
+    sched[k_row, 6] = True
+    sched[k_all] = False
+    P0 = torch.as_tensor(
+        rng.normal(0, 0.01, (cp.m, cp.Kr, R)), dtype=torch.float32, device=cuda
+    ) * cp.row_mask[:, :, None]
+    P0[k_row, : int(cp.r_size[k_row]), 5] = float("inf")
+    P0[k_all, : int(cp.r_size[k_all]), 7] = float("-inf")
+    S0 = torch.as_tensor(
+        rng.normal(0, 0.01, (cp.n, R)), dtype=torch.float32, device=cuda
+    )
+    cost = torch.as_tensor(
+        1.0 + np.arange(cp.n) + 0.01 * ((np.arange(cp.n) * 37) % 61),
+        dtype=torch.float32, device=cuda,
+    )
+    any_row = sched.any(dim=1)
+    order = torch.argsort((~any_row).to(torch.int8), stable=True).to(torch.int32)
+    fn = pw.psweep if variant == "planned" else _with_plan(
+        lambda cp, Bb: pw.REPLICA_THREAD)
+    outs = []
+    for f in (pw.psweep_reference, fn):
+        outs.append(f(
+            cp, x, P0.clone(), torch.zeros((cp.m, R), device=cuda), cost, sched,
+            order, torch.full((R,), 0.15, device=cuda), 0.01, 0.5,
+            torch.tensor([17, -3], dtype=torch.int32, device=cuda),
+            torch.zeros(R, device=cuda), n_rows=any_row.sum(),
+            block_size=4, S=S0.clone(), S_fresh=True,
+        ))
+    torch.cuda.synchronize()
+    a, b = outs
+    assert torch.isfinite(a[3]).all() and torch.isfinite(b[3]).all()
+    assert torch.isfinite(a[2]).all() and torch.isfinite(b[2]).all()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[5], b[5])
+    assert torch.equal(a[3], b[3]) and torch.equal(a[2], b[2])
+    assert torch.equal(a[1], b[1])
+    assert torch.isinf(b[1][k_row, 0, 5]) and torch.isinf(b[1][k_all, 0, 7])
+    assert (b[1][k_row, 0, 6] != P0[k_row, 0, 6]).item()  # its neighbor moved

@@ -156,3 +156,15 @@ def test_the_variables_of_a_row_are_distinct(name):
     assert cp.rowmeta() is meta  # built once per CompiledProblem
     assert torch.equal(meta[:, 3], cp.r_size) and torch.equal(
         meta[:, 4], cp.is_eq.to(torch.int32))
+
+
+@pytest.mark.parametrize("W,Kr", [(88, 24), (2048, 24)])
+@pytest.mark.parametrize("R", [1, 3])
+def test_dp_plan_at_solve_mode_replica_counts(W, Kr, R):
+    """Solve mode runs one replica: the two Z shapes the smoke script
+    drives keep the shared-memory variant there, with a group of one."""
+    plan = zs.dp_launch_plan(W, Kr, R, 8)
+    assert plan.variant == "shared" and plan.G == 1
+    assert plan.threads % 32 == 0 and plan.threads <= zs.DP_LANES_MAX
+    assert plan.grid(R, 8) == (R, 8)
+    assert plan == zs.dp_plan(W, Kr, 1, plan.T)

@@ -10,7 +10,12 @@
   the JAX package anywhere in its files or in chip_smoke.py.
 - The same on two Z (integer-factor) instances, through the Z sweep.
 - Without CUDA and without an explicit device the entry points raise;
-  what the slice does not cover is refused, never rerouted.
+  what the port does not cover is refused, never rerouted.
+- What the fused sweep does not take (float64, the random solver, an
+  instance whose selection needs the full sort, a replica count it
+  refuses) runs through the general sweep, chosen in ``one_step``; each
+  result is valid and, where the JAX optimizer runs the same thing,
+  within the same 15% of it.
 """
 
 import dataclasses
@@ -184,16 +189,154 @@ def test_uncovered_inputs_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         bt.optimize(ctx, bt.parse_lp(z_quad), device="cpu")
     raw = bt.parse_lp(LP)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        bt.solve(bt.make_context(0), raw, device="cpu")
     ctx = bt.make_context(0)
-    ctx.parameters.float_type = bt.FloatType.float64
-    with pytest.raises(NotImplementedError, match="float64"):
+    ctx.parameters.checkpoint_path = "pop.npz"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
         bt.optimize(ctx, raw, device="cpu")
     ctx = bt.make_context(0)
     ctx.parameters.mode = bt.ModeType.manual
     with pytest.raises(NotImplementedError, match="meta-optimizer"):
         bt.optimize(ctx, raw, device="cpu")
+    ctx = bt.make_context(0)
+    ctx.parameters.solver = bt.SolverType.random
+    with pytest.raises(NotImplementedError, match="random solver for Z"):
+        bt.optimize(ctx, bt.parse_lp(Z_ROW), device="cpu")
+
+
+def _full_sort_lp():
+    """LP plus two cardinality rows `sum of 40 variables = 10`, whose
+    selection reads ranks no sort-free split covers."""
+    names = list(bt.parse_lp(LP).vars.names)
+    rows = "".join(
+        f"card{i}: " + " + ".join(names[i * 40:(i + 1) * 40]) + " = 10\n"
+        for i in range(2)
+    )
+    head, tail = LP.split("binary\n", 1)
+    return head + rows + "binary\n" + tail
+
+
+def _count_sweeps(monkeypatch):
+    """Count the calls of the general and of the fused sweep."""
+    from baryonyx_torch.solver import optimize as topt
+
+    calls = {"sweep": 0, "psweep": 0}
+    real_sweep, real_psweep = topt.sweep, topt.pw.psweep
+
+    def sweep(*a, **kw):
+        calls["sweep"] += 1
+        return real_sweep(*a, **kw)
+
+    def psweep(*a, **kw):
+        calls["psweep"] += 1
+        return real_psweep(*a, **kw)
+
+    monkeypatch.setattr(topt, "sweep", sweep)
+    monkeypatch.setattr(topt.pw, "psweep", psweep)
+    return calls
+
+
+GENERAL_CASES = {
+    # name: (lp, parameters, compare with the JAX optimizer)
+    "float64": (lambda: LP, dict(float_type="float64"), True),
+    "random_solver": (lambda: LP, dict(solver="random"), False),
+    "full_sort": (_full_sort_lp, {}, True),
+}
+
+
+@pytest.mark.parametrize("name", list(GENERAL_CASES))
+def test_optimize_through_the_general_sweep(name, monkeypatch):
+    lp, kw, compare = GENERAL_CASES[name]
+    text = lp()
+
+    def ctx_of(mod):
+        ctx = _ctx(mod)
+        for k, v in kw.items():
+            enum = {"float_type": "FloatType", "solver": "SolverType"}[k]
+            setattr(ctx.parameters, k, getattr(getattr(mod, enum), v))
+        return ctx
+
+    calls = _count_sweeps(monkeypatch)
+    raw_t = bt.parse_lp(text)
+    rt = bt.optimize(ctx_of(bt), raw_t, device="cpu")
+    assert calls == {"sweep": 200, "psweep": 0}
+    assert rt.loop == 200 and "exact" not in rt.method
+    if name == "random_solver":
+        # a randomized greedy fill: no claim on what it finds
+        if rt.status == bt.ResultStatus.success:
+            assert bt.is_valid_solution(raw_t, rt)
+        return
+    assert rt.status == bt.ResultStatus.success
+    assert bt.is_valid_solution(raw_t, rt)
+    if compare:
+        import jax
+
+        raw_j = bx.parse_lp(text)
+        with jax.enable_x64(name == "float64"):
+            rj = bx.optimize(ctx_of(bx), raw_j)
+        assert rj.status == bx.ResultStatus.success
+        assert bx.is_valid_solution(raw_j, rt)
+        assert abs(rt.value - rj.value) <= BAND * abs(rj.value)
+
+
+def test_optimize_thread_5(monkeypatch):
+    """Five replicas: the fused sweep's plain version takes them on the
+    CPU; on a CUDA device its kernel wants a multiple of 32 and
+    ``one_step`` goes to the general sweep, which the second run forces."""
+    from baryonyx_torch.solver import optimize as topt
+
+    raw = bt.parse_lp(LP)
+    for force_general in (False, True):
+        with monkeypatch.context() as mp:
+            calls = _count_sweeps(mp)
+            if force_general:
+                mp.setattr(
+                    topt.pw, "supports",
+                    lambda cp, R, dtype, device: R % 32 == 0,
+                )
+            ctx = _ctx(bt)
+            ctx.parameters.thread = 5
+            rt = bt.optimize(ctx, raw, device="cpu")
+        assert rt.replicas == 5 and rt.loop == 200
+        assert calls == (
+            {"sweep": 200, "psweep": 0} if force_general
+            else {"sweep": 0, "psweep": 200}
+        )
+        assert rt.status == bt.ResultStatus.success
+        assert bt.is_valid_solution(raw, rt)
+    rj = bx.optimize(_ctx(bx), bx.parse_lp(LP))
+    assert abs(rt.value - rj.value) <= BAND * abs(rj.value)
+
+
+def test_fused_sweep_wrapper_still_refuses_an_unsupported_call():
+    """The dispatch lives in ``one_step``: called directly with what it
+    does not take, the fused sweep raises and switches to nothing."""
+    tctx = bt.make_context(0)
+    tpb = tpreprocess(tctx, bt.parse_lp(_full_sort_lp()))
+    cp = tcompile(tmerge(tctx, tpb), len(tpb.vars.values), device="cpu")
+    assert not cp.sel_reduction_ok
+    R = 4
+    args = (
+        torch.zeros((cp.n, R), dtype=torch.int32),
+        torch.zeros((cp.m, cp.Kr, R)), torch.zeros((cp.m, R)),
+        torch.ones(cp.n), torch.ones((cp.m, R), dtype=torch.bool),
+        torch.arange(cp.m, dtype=torch.int32), torch.full((R,), 0.1), 0.01,
+        0.5, torch.tensor([3, -7], dtype=torch.int32), torch.zeros(R),
+    )
+    for fn in (tpw.psweep, tpw.psweep_reference):
+        with pytest.raises(NotImplementedError, match="fused sweep"):
+            fn(cp, *args)
+
+
+def test_memory_estimate_counts_the_general_sweep():
+    from baryonyx_torch.memory import estimated_peak_bytes
+
+    tctx = bt.make_context(0)
+    tpb = tpreprocess(tctx, bt.parse_lp(LP))
+    cp = tcompile(tmerge(tctx, tpb), len(tpb.vars.values), device="cpu")
+    fused = estimated_peak_bytes(cp, 512, B=8)
+    general = estimated_peak_bytes(cp, 512, B=8, general_sweep=True)
+    assert general >= fused + 12 * 8 * cp.Kr * 512 * 4
+    assert estimated_peak_bytes(cp, 512, itemsize=8, general_sweep=True) > general
 
 
 def test_state_over_the_device_budget_is_refused(monkeypatch):
