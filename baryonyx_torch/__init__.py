@@ -11,9 +11,12 @@ standard library only.
 - ``solve(ctx, problem, device=None)``: one kappa-annealed run to a
   feasible solution plus the push phase;
 - ``optimize(ctx, problem, device=None)``: the evolutionary multi-start
-  optimizer; both run on the first CUDA device unless ``device="cpu"``;
+  optimizer (linear or quadratic objectives), or the meta-optimizer mode
+  that ``ctx.parameters.mode`` names (manual grid, Nelder-Mead, branch);
+  both run on the first CUDA device unless ``device="cpu"``;
 - ``is_valid_solution``, ``compute_solution``: the numpy oracle;
-- ``python -m baryonyx_torch file.lp``: the command line (cli.py).
+- ``python -m baryonyx_torch file.lp``: the command line (cli.py);
+  ``baryonyx_torch.rbinding``: the R-style binding.
 """
 
 from baryonyx_torch.core.context import Context, make_context

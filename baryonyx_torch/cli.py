@@ -14,7 +14,7 @@ file writing :1240-1270, --check :1227-1239):
   --device cuda|cpu|cuda:N   where the solver runs (default: the first
                              CUDA device; there is no quiet drop to the
                              CPU when none is present)
-  --auto:manual|nlopt|branch meta-optimizer mode (not available yet)
+  --auto:manual|nlopt|branch meta-optimizer mode
   --check file.sol           validate a solution file against the model
   --warmup                   build and load the CUDA kernels the instance
                              needs and run it for 0.2 s (no result file);

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from baryonyx_torch.core.model import AffectedVariables, DerivedVariables
 
@@ -53,6 +53,10 @@ class Result:
     # sweeps of the main loop and the push rounds that solve mode ran
     # (``loop`` is the sweep that found the best solution)
     sweeps: int = 0
+    # optimize with per-replica hyperparameters (``hp_vectors``): each
+    # replica's lifetime best feasible score, minimize-oriented, float64[R]
+    # (+inf where it found none); the meta-optimizers score combos by it
+    replica_best_values: Optional[object] = None
 
     def __bool__(self) -> bool:
         return self.status == ResultStatus.success

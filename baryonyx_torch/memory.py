@@ -7,6 +7,8 @@ the padded device layout).
 
 from __future__ import annotations
 
+from baryonyx_torch.ops import psweep as pw
+
 
 def replica_state_bytes(cp, R: int, itemsize: int = 4) -> int:
     """Solver state for R replicas: x, P, pi, S, plus the bool viol mask
@@ -31,7 +33,17 @@ def estimated_peak_bytes(
     dozen [B, Kr, R] tensors alive at once (the gathered sums, costs,
     keys, their sorted copy or order statistics, the new P, the S update
     and the int64 x encoding) and the [n + 1, R] scatter buffers (the
-    extended S and the int64 priorities)."""
+    extended S and the int64 priorities).
+
+    Quadratic objectives add (solver/optimize.py): the dense normalized
+    ``quad_mat`` [n, n] where n is within the fused sweep's dense limit,
+    with CQ = quad_mat @ x [n, R] in float32 and the float copy of x it
+    multiplies; the objective value's quadratic term, whose gathers
+    x[qa] and x[qb], their product (int32 [Q, R] each) and its cast are
+    alive at once, Q counted as the neighbor entries of ``quad_mask`` (a
+    term between two variables has two); and in the general and Z sweeps
+    the per-slot neighbor gathers of ``block_costs``, [B, Kr, Qmax, R] and
+    their product."""
     transient = 2 * (cp.m * cp.Kr + cp.n * cp.Kc) * R * itemsize
     if cp.has_z:
         nw = (cp.Kr + 31) // 32
@@ -41,4 +53,11 @@ def estimated_peak_bytes(
     if general_sweep:
         transient += 12 * B * cp.Kr * R * max(itemsize, 8)
         transient += (cp.n + 1) * R * (itemsize + 8)
+    if cp.has_quad:
+        if cp.n <= pw.QUAD_DENSE_MAX_N:
+            transient += cp.n * cp.n * itemsize + 2 * cp.n * R * 4
+        n_terms = int(cp.quad_mask.sum())
+        transient += n_terms * R * (3 * 4 + itemsize)
+        if general_sweep or cp.has_z:
+            transient += 2 * B * cp.Kr * cp.quad_var.shape[1] * R * itemsize
     return replica_state_bytes(cp, R, itemsize) * 2 + transient

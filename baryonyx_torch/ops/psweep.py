@@ -230,6 +230,10 @@ def _prepare(
         )
     CQ = None
     if cp.has_quad:
+        # a library product outside the kernel, as the JAX package leaves
+        # it to XLA; in full float32: with TF32
+        # (torch.backends.cuda.matmul.allow_tf32, off by default and left
+        # off) CQ keeps about three digits and the kernel picks other rows
         CQ = (quad_mat @ x.to(quad_mat.dtype)).to(torch.float32).contiguous()
     return SweepInputs(
         cp=cp,

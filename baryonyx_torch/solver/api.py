@@ -43,11 +43,22 @@ def optimize(ctx: Context, raw: RawProblem, device: DeviceLike = None) -> Result
     if ctx.start_cb:
         ctx.start_cb(ctx.parameters)
     ctx.parameters = ctx.parameters.validated()
-    if ctx.parameters.mode & (ModeType.branch | ModeType.nlopt | ModeType.manual):
-        raise NotImplementedError(
-            "the meta-optimizer modes are not ported to the PyTorch solver "
-            "yet (ROADMAP.md Queue 1 item 10)"
-        )
+    params = ctx.parameters
+
+    # the meta modes take the raw problem (solver/meta.py prepares it)
+    if params.mode & ModeType.branch:
+        from baryonyx_torch.solver.meta import branch_optimize
+
+        return branch_optimize(ctx, raw, device=dev)
+    if params.mode & ModeType.nlopt:
+        from baryonyx_torch.solver.meta import nelder_mead_optimize
+
+        return nelder_mead_optimize(ctx, raw, device=dev)
+    if params.mode & ModeType.manual:
+        from baryonyx_torch.solver.meta import manual_optimize
+
+        return manual_optimize(ctx, raw, device=dev)
+
     pb = _prepare(ctx, raw)
     from baryonyx_torch.solver.optimize import optimize_compiled
 

@@ -10,7 +10,16 @@ one sweep (the fused sweep of ops/psweep.py where it applies, else the
 general sweep of ops/sweep.py; ops/zsweep.py's for instances with integer
 factors) and runs its per-replica restart state machine; population
 insertion, crossover and mutation are batched tensor ops inside the same
-step.
+step. Quadratic objectives add c(j, x) = c_j + sum of the set neighbors'
+normalized factors to the costs (a dense CQ = quad_mat @ x at sweep entry
+for the fused sweep, per-slot gathers in the general and Z sweeps) and
+their quadratic term to every replica's objective value.
+
+The meta-optimizers (solver/meta.py) give ``optimize_compiled`` a
+hyperparameter combo per replica (``hp_vectors``: theta, delta,
+kappa_min, kappa_step, init_policy_random) and read back each replica's
+best score. ``checkpoint_path`` saves the population every
+``checkpoint_every`` seconds and resumes from it at start.
 
 Replica phases: ANNEAL (kappa-annealed feasibility run), PUSH (one
 objective-amplified sweep), PUSH_ITER (recovery sweeps after a push, kappa
@@ -34,13 +43,16 @@ Deviations from the reference, on purpose:
 
 from __future__ import annotations
 
+import os
 import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from baryonyx_torch.checkpoint import load_population, save_population
 from baryonyx_torch.core.context import Context
+from baryonyx_torch.core.contracts import validate_replica_state
 from baryonyx_torch.core.errors import InfeasibleConstraintError
 from baryonyx_torch.core.model import ObjectiveType, Problem
 from baryonyx_torch.core.params import (
@@ -112,11 +124,19 @@ class EvolveInputs(NamedTuple):
     cost_constant: float
     bastert_x: torch.Tensor  # int32[n]
     hash_weights: torch.Tensor  # int64[n]
-    hp: dict  # scalar hyperparameters (Python numbers)
+    hp: dict  # hyperparameters: Python numbers; theta, delta, kappa_min
+    # and kappa_step may be [R] tensors (one combo per replica)
     minimize: bool
     block_size: int
     order_policy: Optional[ConstraintOrder] = None
     random_solver: bool = False
+    # quadratic objectives: the normalized factors per variable [n, Qmax]
+    # (general and Z sweeps), the dense normalized [n, n] matrix (fused
+    # sweep; None past pw.QUAD_DENSE_MAX_N) and the terms (qa, qb, factor)
+    # of the objective value
+    quad_fac: Optional[torch.Tensor] = None
+    quad_mat: Optional[torch.Tensor] = None
+    quad_terms: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 def fused_sweep_applies(
@@ -190,17 +210,21 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
         x, P, pi, viol, remaining = zs.z_sweep(
             cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
             hp["delta"], hp["theta"], gen, amp, minimize=minimize,
-            block_size=B,
+            block_size=B, quad_fac=ev.quad_fac,
         )
         S = rs.S
-    elif not fused_sweep_applies(cp, R, dtype, dev, ev.random_solver):
+    elif not (
+        # the fused sweep reads quadratic costs from the dense matrix only
+        (ev.quad_mat is not None or not cp.has_quad)
+        and fused_sweep_applies(cp, R, dtype, dev, ev.random_solver)
+    ):
         # the general sweep, over every block of the order (no row count
         # read on the host)
         x, P, pi, S, viol, remaining = sweep(
             cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
             hp["delta"], hp["theta"], gen, amp, minimize=minimize,
-            block_size=B, random_solver=ev.random_solver, S=rs.S,
-            S_fresh=(state.sweeps % 16) != 0,
+            block_size=B, random_solver=ev.random_solver,
+            quad_fac=ev.quad_fac, S=rs.S, S_fresh=(state.sweeps % 16) != 0,
         )
     else:
         n_rows = padded.sum(dtype=torch.int32)
@@ -210,11 +234,13 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
         x, P, pi, S, viol, remaining = pw.psweep(
             cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
             hp["delta"], hp["theta"], seed, amp, n_rows=n_rows,
-            minimize=minimize, block_size=B, S=rs.S,
+            minimize=minimize, block_size=B, quad_mat=ev.quad_mat, S=rs.S,
             S_fresh=(state.sweeps % 16) != 0,
         )
 
     value = ev.cost_orig @ x.to(dtype) + ev.cost_constant
+    if ev.quad_terms is not None:
+        value = value + quad_value(ev.quad_terms, x, dtype)
     found = remaining == 0  # [R]
     # per-variable instability: sweep-induced bit flips summed over
     # replicas (before any restart reseeding below)
@@ -373,6 +399,14 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
     return OptState(new_rs, pop, gen, order_code, state.sweeps + 1, flips)
 
 
+def quad_value(quad_terms, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The objective's quadratic term for every replica: sum over terms
+    q of f_q * x[a_q] * x[b_q]. x int32[n, R] → [R]. Transient: the two
+    int32 [Q, R] gathers, their product and its cast."""
+    qa, qb, qfv = quad_terms
+    return qfv @ (x[qa] * x[qb]).to(dtype)
+
+
 def evolve(ev: EvolveInputs, state: OptState, n_steps: int) -> OptState:
     """``n_steps`` evolution steps, then the per-chunk flip-counter decay
     (an exponential decay keeps it biased to recent instability)."""
@@ -402,14 +436,15 @@ def device_budget_bytes(device: torch.device) -> Optional[int]:
 
 def replica_batch(
     ctx: Context, cp: CompiledProblem, params: SolverParameters,
-    device: torch.device,
+    device: torch.device, grow: bool = True,
 ) -> Tuple[int, int]:
     """The replica batch R and the row block size the optimizer runs
     with: on CUDA the largest of (2048, 4), (1024, 4), (1024, 8) the
-    fused sweep takes (an explicit thread count or block size wins); Z
-    instances, and those the general sweep runs, keep ``default_replicas``
-    and the requested block size, as the JAX package does. Then R is
-    halved while the state overflows the device budget."""
+    fused sweep takes (an explicit thread count or block size wins, and
+    ``grow=False`` keeps ``default_replicas``: the meta-optimizers must
+    predict R); Z instances, and those the general sweep runs, keep
+    ``default_replicas`` and the requested block size, as the JAX package
+    does. Then R is halved while the state overflows the device budget."""
     f64 = params.float_type == FloatType.float64
     dtype = torch.float64 if f64 else torch.float32
     R = default_replicas(params, device)
@@ -417,7 +452,7 @@ def replica_batch(
     fused = not cp.has_z and fused_sweep_applies(
         cp, R, dtype, device, params.solver == SolverType.random
     )
-    if fused and params.thread <= 0 and device.type == "cuda":
+    if fused and grow and params.thread <= 0 and device.type == "cuda":
         # grow the replica batch to the largest the fused sweep takes;
         # honor an explicit user block_size
         user_B = params.block_size != SolverParameters().block_size
@@ -452,6 +487,7 @@ def replica_batch(
 
 def _budget_loop(
     ctx: Context,
+    params: SolverParameters,
     state: OptState,
     run_evolve,
     stats_fn,
@@ -459,7 +495,9 @@ def _budget_loop(
     time_limit: float,
     sweep_budget: float,
     budget_t0: float,
+    last_ckpt: float,
     bound_fn=None,
+    probe_fn=None,
     diversify_fn=None,
     value_sign: float = 1.0,
 ) -> OptState:
@@ -467,6 +505,8 @@ def _budget_loop(
     the wall-clock budget or the total sweep budget is exhausted
     (reference terminator: itm-optimizer-common.hpp:836-859). The chunk
     length adapts so each host round trip buys ~0.5 s of device work.
+    After each chunk: the debug probe (``probe_fn``) and, every
+    ``params.checkpoint_every`` seconds, the population checkpoint.
     Ctrl-C returns the best population found so far."""
     best_lb = float("-inf")  # bound_fn orientation: higher is tighter
     best_seen = (np.inf, np.inf)  # (remaining, value) of the pool head
@@ -522,6 +562,15 @@ def _budget_loop(
                         "gap {:.2f}%\n",
                         int(stats[2]), lb, best, gap,
                     )
+            if probe_fn is not None:
+                # --debug: device-state invariants per chunk
+                # (reference: bx_assert layer, debug.hpp:75-117)
+                validate_replica_state(probe_fn(state), "optimize chunk")
+            if params.checkpoint_path and (
+                time.monotonic() - last_ckpt >= params.checkpoint_every
+            ):
+                save_population(params.checkpoint_path, state.pop)
+                last_ckpt = time.monotonic()
             if (time.monotonic() - budget_t0) >= time_limit:
                 break
             if float(stats[2]) >= sweep_budget:
@@ -539,16 +588,23 @@ def _refuse(what: str, item: str) -> None:
 
 
 def optimize_compiled(
-    ctx: Context, pb: Problem, device: DeviceLike = None
+    ctx: Context, pb: Problem, device: DeviceLike = None,
+    hp_vectors: Optional[dict] = None,
 ) -> Result:
     """reference: optimize_problem (itm-optimizer-common.hpp:776-908), on
-    one device (CUDA unless ``device="cpu"``)."""
+    one device (CUDA unless ``device="cpu"``).
+
+    ``hp_vectors`` (solver/meta.py): optional per-replica hyperparameter
+    vectors — keys among {"theta", "delta", "kappa_min", "kappa_step",
+    "init_policy_random"}, each a 1-D array of any length C; entries tile
+    cyclically onto the R replicas (replica r runs combo r % C), and R is
+    not grown past ``default_replicas``. The returned Result then carries
+    ``replica_best_values`` (minimize-oriented [R] scores, +inf = that
+    replica never found a feasible x) so the caller can score combos."""
     t0 = time.monotonic()
     dev = resolve_device(device)
     params = ctx.parameters
     minimize = pb.type == ObjectiveType.minimize
-    if params.checkpoint_path:
-        _refuse("checkpointing", "Queue 1 item 10")
     f64 = params.float_type == FloatType.float64
     dtype = torch.float64 if f64 else torch.float32
     use_random = params.solver == SolverType.random
@@ -563,8 +619,14 @@ def optimize_compiled(
         common.finalize(ret, pb, len(constraints), t0)
         return ret
 
-    # observer/debug runs want the real loop's trace
-    if params.observer == ObserverType.none and not params.debug:
+    # observer/debug runs want the real loop's trace; the --random
+    # baseline must stay random; a hyperparameter sweep must run its combos
+    if (
+        hp_vectors is None
+        and not use_random
+        and params.observer == ObserverType.none
+        and not params.debug
+    ):
         from baryonyx_torch.solver.exact import exact_enumerate
 
         exact = exact_enumerate(pb, constraints, n)
@@ -595,8 +657,6 @@ def optimize_compiled(
         ret.remaining_constraints = 1
         common.finalize(ret, pb, len(constraints), t0)
         return ret
-    if cp.has_quad:
-        _refuse("a quadratic objective", "Queue 1 item 9")
     if cp.has_z and use_random:
         raise NotImplementedError("random solver for Z problems")
     if cp.has_z and cp.Wdp and f64 and dev.type == "cuda":
@@ -605,12 +665,24 @@ def optimize_compiled(
             "rows go to the knapsack DP kernel, which is float32"
         )
     cost_orig_real = common.build_cost_vector(pb, n)
-    cost_norm_real = common.normalize_costs(cost_orig_real, params.cost_norm, rng)
+    quad_fac_norm = None
+    if cp.has_quad:
+        cost_norm_real, q_norm = common.normalize_costs_quad(
+            cost_orig_real,
+            cp.quad_fac.cpu().numpy().astype(np.float64),
+            params.cost_norm,
+            rng,
+        )
+        quad_fac_norm = torch.as_tensor(q_norm, dtype=dtype, device=dev)
+    else:
+        cost_norm_real = common.normalize_costs(
+            cost_orig_real, params.cost_norm, rng
+        )
     pad = cp.n - n
     cost_orig = np.pad(cost_orig_real, (0, pad))
     cost_norm = np.pad(cost_norm_real, (0, pad))
 
-    R, block_size = replica_batch(ctx, cp, params, dev)
+    R, block_size = replica_batch(ctx, cp, params, dev, grow=hp_vectors is None)
     P_size = params.init_population_size
 
     # vectorized host oracle for the population init: flat (factor, var)
@@ -624,10 +696,16 @@ def optimize_compiled(
     _rptr = np.cumsum([0] + [len(c_.elements) for c_ in constraints])[:-1]
     _rmin = np.array([c_.min for c_ in constraints], np.float64)
     _rmax = np.array([c_.max for c_ in constraints], np.float64)
+    qel = pb.objective.qelements
+    _qa = np.array([q.variable_index_a for q in qel], np.int64)
+    _qb = np.array([q.variable_index_b for q in qel], np.int64)
+    _qf = np.array([q.factor for q in qel], np.float64)
 
     def evaluate(x: np.ndarray):
         xf = x[:n].astype(np.float64)
         value = float(cost_orig_real @ xf) + pb.objective.value
+        if len(_qf):
+            value += float(_qf @ (xf[_qa] * xf[_qb]))
         act = np.add.reduceat(_ef * xf[_ev], _rptr)
         rem = int(np.sum((act < _rmin) | (act > _rmax)))
         return value, rem
@@ -651,6 +729,16 @@ def optimize_compiled(
         remaining=torch.as_tensor(pop_rem, dtype=torch.int32, device=dev),
         hash=hash_x(pop_x_t, hw),
     )
+
+    if params.checkpoint_path and os.path.exists(params.checkpoint_path):
+        try:
+            pop, pop_x = _resumed_population(
+                params.checkpoint_path, pop, P_size, minimize, dtype, dev
+            )
+            ctx.notice("- resumed population from {}\n", params.checkpoint_path)
+        except (OSError, KeyError, ValueError) as e:
+            # a corrupted or foreign checkpoint: start fresh
+            ctx.warning("- checkpoint load failed: {}\n", e)
 
     bastert = torch.as_tensor(
         np.pad(common.init_bastert(cost_orig_real, minimize), (0, pad)),
@@ -716,6 +804,42 @@ def optimize_compiled(
         use_cycle=params.order == ConstraintOrder.cycle,
     )
 
+    quad_mat = quad_terms = None
+    if cp.has_quad:
+        if cp.n > pw.QUAD_DENSE_MAX_N:
+            # the fused sweep's dense CQ would need an n x n matrix; past
+            # the limit the general sweep's per-slot gathers take the
+            # quadratic costs: correct, much slower
+            ctx.warning(
+                "quadratic objective with {} variables exceeds the fused "
+                "kernel's {}-variable dense limit; using the (slower) "
+                "unfused sweep\n",
+                cp.n,
+                pw.QUAD_DENSE_MAX_N,
+            )
+        else:
+            quad_mat = dense_quad_matrix(cp, quad_fac_norm)
+        quad_terms = (
+            torch.as_tensor(_qa, device=dev),
+            torch.as_tensor(_qb, device=dev),
+            torch.as_tensor(_qf, dtype=dtype, device=dev),
+        )
+
+    # per-replica hyperparameter sweep axis (see docstring): combos tile
+    # cyclically onto the replicas
+    hp_r: dict = {}
+    if hp_vectors:
+        allowed = ("theta", "delta", "kappa_min", "kappa_step",
+                   "init_policy_random")
+        for k, v in hp_vectors.items():
+            if k not in allowed:
+                raise ValueError(f"hp_vectors key {k!r} not sweepable")
+            hp_r[k] = np.resize(np.asarray(v, np.float64), R)
+        for k in ("theta", "delta", "kappa_min", "kappa_step"):
+            if k in hp_r:
+                # rounded to the solver's type, as the sweep computes with it
+                hp[k] = torch.as_tensor(hp_r[k], dtype=dtype, device=dev)
+
     # replica init: a quarter of the replicas start from a zero x plus
     # the reinit mutation, like the reference's optimize threads
     # (itm-optimizer-common.hpp:627,661,528-554); the rest draw diverse
@@ -755,17 +879,26 @@ def optimize_compiled(
             np.int32
         )
         x0_np[:, n:] = 0
+    if "init_policy_random" in hp_r:
+        # per-replica init policy: probability of a Bernoulli(0.5) start
+        # instead of the population/zero start (reference semantics of
+        # init_policy_random, itm-common.hpp:269-282)
+        use_rand = rng.random(R) < hp_r["init_policy_random"]
+        rand_x = (rng.random((R, cp.n)) < 0.5).astype(np.int32)
+        rand_x[:, n:] = 0
+        x0_np = np.where(use_rand[:, None], rand_x, x0_np)
     x0 = torch.as_tensor(x0_np.T.copy(), device=dev)  # int32[n, R]
     # first ladder rung (reference reinit's first call bumps kappa_append
-    # before the first inner run)
+    # before the first inner run), from each replica's kappa_min
     append0 = params.init_kappa_improve_start + params.init_kappa_improve_increase
-    kappa0 = params.kappa_min + (params.kappa_max - params.kappa_min) * (
+    kmin0 = hp_r.get("kappa_min", params.kappa_min)
+    kappa0 = kmin0 + (params.kappa_max - kmin0) * (
         append0 if append0 < params.init_kappa_improve_stop else 0.0
     )
     order_code = common.ORDER_CODES.get(params.order, 0)
 
     def full(v, dt):
-        return torch.full((R,), v, dtype=dt, device=dev)
+        return torch.as_tensor(v, dtype=dt, device=dev).expand(R).contiguous()
 
     rs = ReplicaState(
         x=x0,
@@ -801,6 +934,9 @@ def optimize_compiled(
         block_size=block_size,
         order_policy=params.order,
         random_solver=use_random,
+        quad_fac=quad_fac_norm,
+        quad_mat=quad_mat,
+        quad_terms=quad_terms,
     )
 
     # Stopping: with a time limit, run until it expires (reference:
@@ -826,6 +962,7 @@ def optimize_compiled(
         ).cpu().numpy()
         return np.array([dev_stats[0], dev_stats[1], st.sweeps, dev_stats[2]])
 
+    last_ckpt = time.monotonic()
     # the kernels build at first use: keep that out of the time budget
     if dev.type == "cuda":
         if cp.has_z:
@@ -846,12 +983,30 @@ def optimize_compiled(
         ).to(torch.int32) * pad_mask[None, :]
         newx = torch.cat([st.pop.x[:n_keep], rnd])
         value = newx.to(dtype) @ co + ev.cost_constant
+        if quad_terms is not None:
+            value = value + quad_value(quad_terms, newx.T, dtype)
         rem = violated_mask(cp, newx.T).sum(dim=0, dtype=torch.int32)
         pop2 = sort_population(
             Population(x=newx, value=value, remaining=rem, hash=hash_x(newx, hw)),
             minimize,
         )
         return st._replace(pop=pop2)
+
+    probe_fn = None
+    if params.debug:
+        def probe_fn(st: OptState) -> dict:
+            rs = st.replicas
+            probe = torch.stack([
+                rs.pi.abs().max().to(torch.float64),
+                rs.P.abs().max().to(torch.float64),
+                rs.x.min().to(torch.float64),
+                rs.x.max().to(torch.float64),
+                rs.kappa.max().to(torch.float64),
+                rs.viol.sum(dim=0).min().to(torch.float64),
+            ]).cpu().numpy()
+            keys = ("pi_absmax", "P_absmax", "x_min", "x_max", "kappa_max",
+                    "remaining_min")
+            return dict(zip(keys, probe), m=cp.m_real)
 
     bound_fn = None
     if params.print_level > 0:
@@ -863,9 +1018,10 @@ def optimize_compiled(
             return lb, (lb if minimize else -lb)
 
     state = _budget_loop(
-        ctx, state, lambda st, k: evolve(ev, st, k), stats_fn, chunk,
-        time_limit, sweep_budget, budget_t0, bound_fn=bound_fn,
-        diversify_fn=diversify, value_sign=1.0 if minimize else -1.0,
+        ctx, params, state, lambda st, k: evolve(ev, st, k), stats_fn, chunk,
+        time_limit, sweep_budget, budget_t0, last_ckpt, bound_fn=bound_fn,
+        probe_fn=probe_fn, diversify_fn=diversify,
+        value_sign=1.0 if minimize else -1.0,
     )
 
     # extraction (reference: :869-900); best LAST to match Result.best
@@ -882,6 +1038,11 @@ def optimize_compiled(
     fl = state.flips[:n].cpu().numpy()
     if fl.size and fl.max() > 0:
         ret.annoying_variable = int(np.argmax(fl))
+    if hp_vectors is not None:
+        # per-replica quality readout for the meta-optimizers
+        ret.replica_best_values = (
+            state.replicas.best_value.cpu().numpy().astype(np.float64)
+        )
 
     if params.storage == StorageType.one:
         want = [0]
@@ -904,3 +1065,53 @@ def optimize_compiled(
     if ctx.finish_cb:
         ctx.finish_cb(ret)
     return ret
+
+
+def dense_quad_matrix(
+    cp: CompiledProblem, quad_fac_norm: torch.Tensor
+) -> torch.Tensor:
+    """The dense normalized neighbor matrix [n, n] of the fused sweep's
+    CQ = quad_mat @ x: entry (j, k) sums the normalized factors of j's
+    neighbor k (the diagonal holds square terms), accumulated in float64
+    on the host from the factors as the solver's type holds them, then
+    cast to it."""
+    qm = cp.quad_mask.cpu().numpy()
+    qv = cp.quad_var.cpu().numpy()
+    qf = quad_fac_norm.cpu().numpy().astype(np.float64)
+    dq = np.zeros((cp.n, cp.n))
+    jj = np.repeat(np.arange(cp.n), qm.shape[1]).reshape(qm.shape)
+    np.add.at(dq, (jj[qm], qv[qm]), qf[qm])
+    return torch.as_tensor(dq, dtype=quad_fac_norm.dtype, device=quad_fac_norm.device)
+
+
+def _resumed_population(
+    path: str, pop: Population, P_size: int, minimize: bool, dtype, dev
+) -> Tuple[Population, np.ndarray]:
+    """The population saved at ``path`` in place of ``pop``, sorted, and
+    its x on the host; ``pop`` itself where the file's shape does not
+    fit. A file of a multi-device run ([D·P, n]) keeps its best P."""
+    saved = load_population(path)
+    sx, sv = saved.x.numpy(), saved.value.numpy().astype(np.float64)
+    sr, sh = saved.remaining.numpy(), saved.hash.numpy()
+    if (
+        sx.ndim == 2
+        and sx.shape[1] == pop.x.shape[1]
+        and sx.shape[0] > pop.x.shape[0]
+        and sx.shape[0] % pop.x.shape[0] == 0
+    ):
+        sidx = np.lexsort((sv if minimize else -sv, sr))[:P_size]
+        sx, sv, sr, sh = sx[sidx], sv[sidx], sr[sidx], sh[sidx]
+    if sx.shape != tuple(pop.x.shape):
+        raise ValueError(
+            f"checkpoint population {sx.shape} does not fit {tuple(pop.x.shape)}"
+        )
+    pop = sort_population(
+        Population(
+            x=torch.as_tensor(sx, dtype=torch.int32, device=dev),
+            value=torch.as_tensor(sv, dtype=dtype, device=dev),
+            remaining=torch.as_tensor(sr, dtype=torch.int32, device=dev),
+            hash=torch.as_tensor(sh, dtype=torch.int64, device=dev),
+        ),
+        minimize,
+    )
+    return pop, pop.x.cpu().numpy()

@@ -6,16 +6,24 @@ mode.
 Runs ``optimize`` for its default budget of 1000 sweeps in fixed chunks,
 on each instance in turn: scp200x1000
 (random_set_cover_lp(200, 1000, 0.02, seed=41), the main path, whose
-sweep is the fused sweep kernel) and zknap200x1000
+sweep is the fused sweep kernel), zknap200x1000
 (random_z_multiknapsack_lp(200, 1000, seed=2), the Z path, whose long
-rows go to the knapsack DP kernel). The fourth chunk is traced with
+rows go to the knapsack DP kernel) and qsap500x10
+(random_qsap_lp(500, 10, seed=3), a quadratic objective: the fused sweep
+kernel with CQ = quad_mat @ x, a float32 matrix product, at its entry,
+and the objective's quadratic term gathered per replica). The fourth
+chunk is traced with
 torch.profiler, started and stopped from the progress callback so that
 set-up and warm-up stay outside the window. Prints, and writes to
 DIR/profile.json: the wall time per step of the untraced chunk before it,
 the device time per step summed over all kernels and over the instance's
 hand-written kernel, the device idle share (1 - device time / wall time),
 and the ten kernels and the ten host ops that take the most time in the
-traced chunk.
+traced chunk; and the device time per step by kind of kernel: the
+hand-written kernel, matrix products (``gemm``: on qsap500x10 the CQ
+product), matrix-vector products (``gemv``: the objective values),
+gathers and index kernels (``index``: on qsap500x10 mostly the quadratic
+term's x[qa] and x[qb]), and the rest of the glue.
 
 Then ``solve`` (one replica, default parameters) on the same two
 instances: its sweeps from the 20th on, of the annealed loop and the push
@@ -36,7 +44,11 @@ from pathlib import Path
 import torch
 
 import baryonyx_torch as bt
-from baryonyx_torch.generators import random_set_cover_lp, random_z_multiknapsack_lp
+from baryonyx_torch.generators import (
+    random_qsap_lp,
+    random_set_cover_lp,
+    random_z_multiknapsack_lp,
+)
 
 # name: (LP text, steps per chunk, the hand-written kernel's symbol)
 INSTANCES = {
@@ -45,6 +57,9 @@ INSTANCES = {
     ),
     "zknap200x1000": (
         lambda: random_z_multiknapsack_lp(200, 1000, seed=2), 25, "dpselect_kernel"
+    ),
+    "qsap500x10": (
+        lambda: random_qsap_lp(500, 10, seed=3), 100, "psweep_kernel"
     ),
 }
 
@@ -121,6 +136,14 @@ def _summary(prof, steps: int, wall_s: float, kernel: str) -> dict:
     )
     device_us = sum(t[1] for t in dev)
     kernel_us = sum(t[1] for t in dev if kernel in t[0])
+    kinds = {"gemm": 0.0, "gemv": 0.0, "index": 0.0}
+    for key, us, _ in dev:
+        low = key.lower()
+        kind = next((k for k in ("gemm", "gemv") if k in low), None)
+        if kind is None and ("index" in low or "gather" in low):
+            kind = "index"
+        if kind is not None and kernel not in key:
+            kinds[kind] += us
     return dict(
         kernel=kernel,
         chunk_steps=steps,
@@ -130,6 +153,9 @@ def _summary(prof, steps: int, wall_s: float, kernel: str) -> dict:
         device_kernel_launches_per_step=sum(t[2] for t in dev) / steps,
         device_idle_share=1.0 - device_us / 1e6 / wall_s,
         kernel_share_of_wall=kernel_us / 1e6 / wall_s,
+        **{f"{k}_ms_per_step": v / 1e3 / steps for k, v in kinds.items()},
+        other_glue_ms_per_step=(device_us - kernel_us - sum(kinds.values()))
+        / 1e3 / steps,
         top_device=[dict(name=k, ms=v / 1e3, count=c) for k, v, c in dev[:10]],
         top_host=[dict(name=k, ms=v / 1e3, count=c) for k, v, c in host[:10]],
     )
@@ -207,7 +233,7 @@ def main() -> None:
     print(card)
     runs = []
     for fn, name in [(profile, n) for n in INSTANCES] + [
-        (profile_solve, n) for n in INSTANCES
+        (profile_solve, n) for n in SOLVE_WINDOWS
     ]:
         out = fn(name, args.seed, card)
         runs.append(out)

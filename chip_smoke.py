@@ -19,7 +19,7 @@ baryonyx_torch/csrc, then:
      every (row, replica) pair; it fails unless most pairs are scheduled
      and most end with a moved P;
   2. drives the main path — baryonyx_torch.optimize on scp200x1000
-     through make_problem and parse_lp, for 10 s — with the launch counters
+     through make_problem and parse_lp, for 4 s — with the launch counters
      set to 0 just before and read just after, and validates the solution;
      then optimize on the scpnre class for a few seconds. Both runs keep
      copies of the inputs of some of their sweeps (the main path's last
@@ -44,7 +44,7 @@ baryonyx_torch/csrc, then:
      with the kernel; prints each table's launch plan and fails if one
      takes the device_table variant;
   5. drives the Z path — baryonyx_torch.optimize on zknap200x1000 through
-     make_problem, for 10 s — with the launch counters set to 0 just
+     make_problem, for 4 s — with the launch counters set to 0 just
      before and read just after: the solution must be valid, and the DP
      launches must equal the blocks the sweeps processed; the run keeps
      copies of the DP inputs of some sweeps;
@@ -72,7 +72,34 @@ baryonyx_torch/csrc, then:
  11. runs the command line in-process (baryonyx_torch.cli.main) on an LP
      file in a temporary directory, solve mode, --limit 200: exit code 0, a
      .sol file that --check then calls valid;
- 12. prints one JSON line with every kernel's numbers, then the last
+ 12. the quadratic path: writes qsap500x10 (random_qsap_lp(500, 10,
+     seed=3); m 512, n 5120, 19,599 quadratic terms) to build/, loads it
+     with make_problem (it fails unless the native LP parser read it) and
+     drives baryonyx_torch.optimize on it for 6 s with the launch counters
+     set to 0 just before and read just after: a valid solution whose
+     objective equals the numpy oracle's, through the fused sweep kernel
+     (the general sweep must not run), at the R and B replica_batch gives;
+     keeps copies of the inputs of some sweeps, the dense quad_mat
+     included;
+ 13. at those inputs, holds the kernel (its HAS_CQ variant) against its
+     plain version (x and remaining bit-exact, P, pi and S within the
+     tolerances of phase 1) and times it in turns with its first design,
+     as phase 3 does; times CQ = quad_mat @ x (a float32 torch.matmul,
+     TF32 off) on its own; the kernel's byte bound counts the CQ reads;
+ 14. the three meta-optimizer modes through cli.main in-process on
+     scp200x1000 (--auto:manual for 7 s, --auto:nlopt for 4 s,
+     --auto:branch for 4 s), each followed by --check: exit code 0 and a
+     valid .sol; prints the method, objective, replica count and wall time
+     of each, with the kernel launches of each run;
+ 15. at sweep inputs copied from the manual mode's first chunks
+     (scp200x1000, R = 512, every replica at a combo of its own: the first
+     chunk varies delta, kappa_min, kappa_step and init_policy_random, a
+     later one theta too) holds the kernel against its plain version
+     again, x bit for bit;
+ 16. population checkpoints: optimize on scp200x1000 for 3 s writing
+     build/checkpoint-scp200x1000.npz after every chunk, then a second 3 s
+     run that must say it resumed from it and be no worse;
+ 17. prints one JSON line with every kernel's numbers, then the last
      line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line. Without a CUDA device, or
@@ -95,12 +122,15 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SWEEPS = 3
-TIME_LIMIT_S = 6.0  # the optimize budget of the main-path run
-NRE_TIME_LIMIT_S = 6.0  # the optimize budget of the scpnre run
-Z_TIME_LIMIT_S = 6.0  # the optimize budget of the Z-path run
+TIME_LIMIT_S = 4.0  # the optimize budget of the main-path run
+NRE_TIME_LIMIT_S = 4.0  # the optimize budget of the scpnre run
+Z_TIME_LIMIT_S = 4.0  # the optimize budget of the Z-path run
 SOLVE_TIME_LIMIT_S = 20.0  # solve on scp200x1000
 Z_SOLVE_TIME_LIMIT_S = 10.0  # solve on zknap200x1000
 FALLBACK_TIME_LIMIT_S = 5.0  # optimize through the general sweep
+QSAP_TIME_LIMIT_S = 6.0  # optimize on qsap500x10
+META_TIME_LIMIT_S = {"manual": 7.0, "nlopt": 4.0, "branch": 4.0}
+CHECKPOINT_TIME_LIMIT_S = 3.0  # each of the two checkpoint runs
 SWEEP_R = 32  # replicas of the general sweep's card-against-CPU check
 SWEEP_TOL = 1e-5  # absolute plus relative, on P, pi and S
 DP_R = 512  # replicas of the DP parity phase (the Z path's default R)
@@ -157,6 +187,7 @@ def main() -> int:
 
     import baryonyx_torch as bt
     from baryonyx_torch.generators import (
+        random_qsap_lp,
         random_set_cover_lp,
         random_z_multiknapsack_lp,
     )
@@ -166,6 +197,7 @@ def main() -> int:
     from baryonyx_torch.ops.sweep import SweepNoise, sweep, violated_mask
     from baryonyx_torch.preprocess.merge import make_merged_constraints
     from baryonyx_torch.solver import common
+    from baryonyx_torch.solver import optimize as bopt
     from baryonyx_torch.solver.api import _prepare
     from baryonyx_torch.solver.optimize import replica_batch
 
@@ -209,7 +241,7 @@ def main() -> int:
             fail(f"{label}: kernel P/pi/S outside tolerance: {errs}")
         return max(errs.values())
 
-    def run_chain(fn, cp, R, B, cost, push):
+    def run_chain(fn, cp, R, B, cost, push, delta=0.01, theta=0.5):
         """SWEEPS sweeps from x = 0; push lanes schedule every row, the
         others their violated rows; the order puts the scheduled rows
         first, as the optimizer's step does."""
@@ -227,7 +259,7 @@ def main() -> int:
                                 device=dev)
             x, P, pi, S, viol, rem = fn(
                 cp, x, P, pi, cost, sched, order.to(torch.int32),
-                torch.full((R,), 0.15, device=dev), 0.01, 0.5, seed,
+                torch.full((R,), 0.15, device=dev), delta, theta, seed,
                 torch.zeros(R, device=dev), n_rows=any_row.sum(),
                 minimize=True, block_size=B, S=S, S_fresh=it != 0,
             )
@@ -240,7 +272,8 @@ def main() -> int:
     class Capture:
         """Wraps a kernel's dispatcher for an optimize run: keeps copies of
         the inputs of every ``every``-th call, the last ``keep`` of them
-        or, with ``first``, the first ``keep``."""
+        or, with ``first``, the first ``keep``; notes when the first call
+        came."""
 
         def __init__(self, real, every: int, keep: int, first: bool = False):
             self.every = every
@@ -249,8 +282,11 @@ def main() -> int:
             self.states = collections.deque(maxlen=keep)
             self.calls = 0
             self.real = real
+            self.t_first = None
 
         def __call__(self, *a, **kw):
+            if self.t_first is None:
+                self.t_first = time.monotonic()
             self.calls += 1
             full = self.first and len(self.states) == self.keep
             if self.calls % self.every == 0 and not full:
@@ -262,12 +298,14 @@ def main() -> int:
         c = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
         return tuple(c(v) for v in a), {k: c(v) for k, v in kw.items()}
 
-    def run_optimize(lp: str, limit: float, every: int, keep: int,
-                     module=pw, attr="psweep", first=False):
-        """optimize on ``lp`` for ``limit`` s, with ``module.attr`` wrapped
-        by a Capture; every launch counter is set to 0 just before and
-        read just after. Returns (raw, result, launches by kernel,
-        replica-sweeps/s, captured inputs)."""
+    def run_optimize(lp, limit: float, every: int, keep: int,
+                     module=pw, attr="psweep", first=False, timing=None):
+        """optimize on ``lp`` (LP text, or a Path to an LP file) for
+        ``limit`` s, with ``module.attr`` wrapped by a Capture; every
+        launch counter is set to 0 just before and read just after.
+        Returns (raw, result, launches by kernel, replica-sweeps/s,
+        captured inputs); ``timing`` gets the seconds of the parse and
+        of the set-up before the first sweep."""
         ctx = bt.make_context(4)
         ctx.parameters.seed = args.seed
         ctx.parameters.time_limit = limit
@@ -277,17 +315,25 @@ def main() -> int:
             last.update(loop=loop, elapsed=elapsed, value=value)
 
         ctx.register(update=on_update)
-        raw = bt.make_problem(ctx, io.StringIO(lp))
+        t = time.monotonic()
+        raw = bt.make_problem(
+            ctx, str(lp) if isinstance(lp, Path) else io.StringIO(lp)
+        )
+        t_parse = time.monotonic() - t
         cap = Capture(getattr(module, attr), every, keep, first)
         setattr(module, attr, cap)
         try:
             for k in counters.values():
                 k.launches = 0
+            t = time.monotonic()
             result = bt.optimize(ctx, raw)
             torch.cuda.synchronize()
             launches = {name: k.launches for name, k in counters.items()}
         finally:
             setattr(module, attr, cap.real)
+        if timing is not None:
+            timing.update(parse_s=t_parse,
+                          setup_s=(cap.t_first or time.monotonic()) - t)
         rate = result.replicas * last["loop"] / last["elapsed"]
         return raw, result, launches, rate, list(cap.states)
 
@@ -302,15 +348,17 @@ def main() -> int:
     def bound(cp, inp):
         """Least time of one sweep at this state: the bytes it needs —
         sched of the rows it walks; for each scheduled (row, replica)
-        pair its P row and pi read and written; S read and written and x
-        written once for each (variable, replica) a scheduled pair
-        touches; the row tables, costs and per-replica vectors — over the
+        pair its P row and pi read and written; S read and written, x
+        written and (with a quadratic objective) CQ read once for each
+        (variable, replica) a scheduled pair touches; the row tables, costs
+        and per-replica vectors — over the
         memory rate; or its operations over the float32 rate. Per
         scheduled slot the sweep needs: the reduced cost 6, the splitmix
         hash 13, the tie noise 7, the count of keys <= 0 2, the J_bot +
         J_top order statistics and the two keys nearest 0 2 each, and
         phase B's threshold test, P, S and x updates 7."""
         R = inp.S.shape[1]
+        cq = 4 if inp.CQ is not None else 0  # CQ read per touched pair
         order = inp.order[: int(inp.n_rows)].long()
         rows = order[order < cp.m]
         L = rows.numel()
@@ -326,7 +374,7 @@ def main() -> int:
             L * R  # sched
             + 8 * slots  # P read + written
             + 8 * pairs  # pi read + written
-            + 12 * touched  # S read + written, x written
+            + (12 + cq) * touched  # S read + written, x written, CQ read
             + 4 * int(rsz.sum()) + 20 * L + 4 * cp.n + 16 * R  # tables
         )
         ops = (6 + 13 + 7 + 2 + 2 * (cp.J_bot + cp.J_top + 2) + 7) * slots
@@ -449,9 +497,12 @@ def main() -> int:
     del raw2, res2
 
     # ---- phase 3: kernel vs plain version at the main paths' states
-    per_instance = []
-    for name, states, reps in (("scp200x1000", main_states, 50),
-                               ("scpnre500x5000", nre_states, 5)):
+    def kernel_at_states(name, states, reps):
+        """Kernel A against its plain version at each captured state, then
+        timed in turns with its first design (and with S in L2 where the
+        plan keeps S resident); the plain version and the bound beside.
+        Returns the instance's record (means over the states)."""
+        nonlocal max_err, mismatches
         if not states:
             fail(f"{name}: optimize ran too few sweeps to keep a state")
         recs = []
@@ -493,12 +544,12 @@ def main() -> int:
         mean = {k: sum(r[k] for r in recs) / len(recs)
                 for k in recs[0] if k not in ("bound_by", "n_rows")}
         by = collections.Counter(r["bound_by"] for r in recs).most_common(1)
-        per_instance.append(dict(
+        rec = dict(
             instance=name, R=R, B=B, m=cp.m, n=cp.n, Kr=cp.Kr,
             plan=plan._asdict(), states=len(recs), bound_by=by[0][0], **mean,
             by_state=[{k: r[k] for k in ("sched_share", "ms", "old_ms")}
                       for r in recs],
-        ))
+        )
         print(f"[{name}] mean over {len(recs)} states: kernel "
               f"{mean['ms']:.4f} ms/sweep, first design {mean['old_ms']:.4f} "
               f"ms/sweep, plain {mean['plain_ms']:.4f} ms/sweep, bound "
@@ -506,6 +557,10 @@ def main() -> int:
               f"{mean['sched_share']:.4f}")
         del states[:]
         torch.cuda.empty_cache()
+        return rec
+
+    per_instance = [kernel_at_states("scp200x1000", main_states, 50),
+                    kernel_at_states("scpnre500x5000", nre_states, 5)]
 
     # ---- phase 4: the DP kernel vs its plain version at random inputs
     z_instances = {
@@ -851,7 +906,214 @@ def main() -> int:
         if rc != 0 or ": valid" not in said:
             fail(f"--check did not call the command line's .sol valid: {said}")
 
-    # ---- phase 12: the kernels line, then the result line
+    # ---- phase 12: the quadratic path: optimize on qsap500x10
+    build = repo / "build"
+    build.mkdir(exist_ok=True)
+    qsap_path = build / "qsap500x10.lp"
+    qsap_path.write_text(random_qsap_lp(500, 10, seed=3))
+    import baryonyx_torch.native.lp as native_lp
+
+    native_reads = []
+    real_native = native_lp.parse_lp_native
+
+    def counted_native(path):
+        pb = real_native(path)
+        native_reads.append(pb is not None)
+        return pb
+
+    general_calls = [0]
+    real_general = bopt.sweep
+
+    def counted_general(*a, **kw):
+        general_calls[0] += 1
+        return real_general(*a, **kw)
+
+    native_lp.parse_lp_native = counted_native
+    bopt.sweep = counted_general
+    qtiming = {}
+    try:
+        qraw, qres, qcounts, qrate, q_states = run_optimize(
+            qsap_path, QSAP_TIME_LIMIT_S, every=97, keep=4, timing=qtiming,
+        )
+    finally:
+        native_lp.parse_lp_native = real_native
+        bopt.sweep = real_general
+    if native_reads != [True]:
+        fail(f"qsap500x10: the native LP parser did not read the file "
+             f"({native_reads})")
+    qvalid = bt.is_valid_solution(qraw, qres)
+    qoracle = bt.compute_solution(qraw, qres)
+    print(f"[optimize qsap500x10] parse {qtiming['parse_s']:.3f} s (native), "
+          f"set-up to the first sweep {qtiming['setup_s']:.2f} s; status "
+          f"{qres.status.name} objective {qres.value} (oracle {qoracle}) sweeps "
+          f"{qres.loop} R {qres.replicas} B {qres.block_size} replica-sweeps/s "
+          f"{qrate:.1f} launches {qcounts} general sweeps {general_calls[0]} "
+          f"valid {qvalid} duration {qres.duration:.2f} s")
+    if qres.status != bt.ResultStatus.success or not qvalid:
+        fail("qsap500x10: optimize did not return a valid feasible solution")
+    if not np.isfinite(qres.value) or abs(qoracle - qres.value) > 1e-6 * max(
+            1.0, abs(qoracle)):
+        fail(f"qsap500x10: objective {qres.value} vs the oracle's {qoracle}")
+    if qcounts["psweep"] <= 0 or qcounts["psweep"] != qres.loop \
+            or general_calls[0] or qcounts["dpselect"]:
+        fail(f"qsap500x10: launches {qcounts}, general sweeps "
+             f"{general_calls[0]}, vs sweeps {qres.loop}")
+    if not q_states or q_states[0][1].get("quad_mat") is None:
+        fail("qsap500x10: no sweep input with a quad_mat was kept")
+    qsap_rec = {"objective": qres.value, "sweeps": qres.loop,
+                "R": qres.replicas, "B": qres.block_size,
+                "replica_sweeps_per_s": qrate, **qtiming}
+
+    # ---- phase 13: kernel A's HAS_CQ variant at the qsap500x10 states
+    qm = q_states[0][1]["quad_mat"]
+    qx = q_states[-1][0][1].to(torch.float32)
+    cq_out = torch.empty((qm.shape[0], qx.shape[1]), device=dev)
+    cq_ms = timed(lambda _: torch.matmul(qm, qx, out=cq_out), None, 20,
+                  graph=True)
+    n_q, R_q = qm.shape[0], qx.shape[1]
+    cq_bound = max((n_q * n_q + 2 * n_q * R_q) * 4 / HBM_BYTES_PER_S,
+                   2.0 * n_q * n_q * R_q / F32_OPS_PER_S) * 1e3
+    qsap_kernel = kernel_at_states("qsap500x10", q_states, 20)
+    qsap_kernel.update(cq_matmul_ms=cq_ms, cq_matmul_bound_ms=cq_bound)
+    per_instance.append(qsap_kernel)
+    print(f"[qsap500x10] CQ = quad_mat @ x ([{n_q}, {n_q}] x [{n_q}, {R_q}], "
+          f"float32, TF32 {torch.backends.cuda.matmul.allow_tf32}): "
+          f"{cq_ms:.4f} ms, bound {cq_bound:.4f} ms (operations)")
+    del qm, qx, cq_out, q_states
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the three meta-optimizer modes through the command line
+    meta_recs = {}
+    manual_states = []
+    real_opt = bopt.optimize_compiled
+    with tempfile.TemporaryDirectory() as tmp:
+        lp_path = Path(tmp) / "scp200x1000.lp"
+        lp_path.write_text(instances["scp200x1000"])
+        for mode, limit in META_TIME_LIMIT_S.items():
+            runs = []
+
+            def recorded(ctx, pb, device=None, hp_vectors=None):
+                res = real_opt(ctx, pb, device=device, hp_vectors=hp_vectors)
+                runs.append((res, hp_vectors is not None))
+                return res
+
+            # sweep inputs of the manual mode's first chunks, every replica
+            # at a combo of its own (the grid turns theta slowest: it takes
+            # one value in the first 625 combos)
+            cap = Capture(pw.psweep, 100, 6, first=True)
+            bopt.optimize_compiled = recorded
+            if mode == "manual":
+                pw.psweep = cap
+            try:
+                for k in counters.values():
+                    k.launches = 0
+                t = time.monotonic()
+                rc = cli_main(["--quiet", f"--auto:{mode}", "--time-limit",
+                               str(limit), "--seed", str(args.seed),
+                               str(lp_path)])
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t
+                mcounts = {name: k.launches for name, k in counters.items()}
+            finally:
+                bopt.optimize_compiled = real_opt
+                pw.psweep = cap.real
+            if mode == "manual":
+                manual_states = list(cap.states)
+            sols = list(Path(tmp).glob("scp200x1000.lp-*.sol"))
+            if rc != 0 or len(sols) != 1:
+                fail(f"--auto:{mode} returned {rc} and wrote {len(sols)} .sol "
+                     f"files")
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                rc = cli_main(["--quiet", "--check", str(sols[0]), str(lp_path)])
+            said = said.getvalue()
+            if rc != 0 or ": valid" not in said:
+                fail(f"--auto:{mode}: --check did not call the .sol valid: {said}")
+            objective = float(said.strip().splitlines()[-1].split(": ")[-1])
+            sols[0].unlink()
+            last = runs[-1][0]
+            rec = dict(
+                method=last.method, objective=objective,
+                R=sorted({r.replicas for r, _ in runs}),
+                optimize_runs=len(runs),
+                runs_with_hp_vectors=sum(hv for _, hv in runs),
+                wall_s=wall, time_limit_s=limit, launches=mcounts,
+            )
+            meta_recs[mode] = rec
+            print(f"[--auto:{mode}] method {rec['method']} objective "
+                  f"{objective} R {rec['R']} optimize runs {len(runs)} "
+                  f"({rec['runs_with_hp_vectors']} with per-replica "
+                  f"hyperparameters) wall {wall:.2f} s launches {mcounts}; "
+                  f"--check: valid")
+            if mcounts["psweep"] <= 0:
+                fail(f"--auto:{mode} launched the sweep kernel no time")
+    if meta_recs["manual"]["runs_with_hp_vectors"] < 1:
+        fail("--auto:manual ran no optimize with per-replica hyperparameters")
+
+    # ---- phase 15: kernel A at per-replica theta and delta
+    if not manual_states:
+        fail("--auto:manual: no sweep input of its first chunk was kept")
+    hp_x_mis = 0
+    thetas_seen = 1
+    for i, st in enumerate(manual_states):
+        delta_v, theta_v = st[0][8], st[0][9]
+        if not (isinstance(delta_v, torch.Tensor) and delta_v.numel() > 1
+                and isinstance(theta_v, torch.Tensor)
+                and theta_v.numel() == delta_v.numel()
+                and delta_v.unique().numel() > 1):
+            fail("--auto:manual: a kept sweep input has no per-replica "
+                 "theta and delta")
+        thetas_seen = max(thetas_seen, theta_v.unique().numel())
+        a = pw.psweep_reference(*cloned(st)[0], **cloned(st)[1])
+        b = pw.psweep(*cloned(st)[0], **cloned(st)[1])
+        max_err = max(max_err, check(f"per-replica theta/delta state {i}", a, b))
+        hp_x_mis += compare(a, b)[0]
+        print(f"[per-replica theta/delta state {i}] R {theta_v.numel()}: "
+              f"{theta_v.unique().numel()} thetas in "
+              f"[{float(theta_v.min()):.3f}, {float(theta_v.max()):.3f}], "
+              f"{delta_v.unique().numel()} deltas; x bit for bit")
+        del a, b
+    if thetas_seen < 2:
+        fail("--auto:manual: no kept sweep input has more than one theta")
+    per_replica_rec = dict(instance="scp200x1000, manual grid's first chunks",
+                           R=int(manual_states[0][0][9].numel()),
+                           states=len(manual_states), x_mismatches=hp_x_mis)
+    mismatches += hp_x_mis
+    del manual_states
+
+    # ---- phase 16: population checkpoints
+    ckpt = build / "checkpoint-scp200x1000.npz"
+    ckpt.unlink(missing_ok=True)
+    ckpt_runs = []
+    for resume in (False, True):
+        ctx = bt.make_context(4)
+        ctx.parameters.seed = args.seed
+        ctx.parameters.time_limit = CHECKPOINT_TIME_LIMIT_S
+        ctx.parameters.checkpoint_path = str(ckpt)
+        ctx.parameters.checkpoint_every = 0.0
+        notices = []
+        ctx.notice = lambda msg, *a: notices.append(msg.format(*a))
+        raw = bt.make_problem(ctx, io.StringIO(instances["scp200x1000"]))
+        for k in counters.values():
+            k.launches = 0
+        res = bt.optimize(ctx, raw)
+        torch.cuda.synchronize()
+        ccounts = {name: k.launches for name, k in counters.items()}
+        resumed = any("resumed population" in m for m in notices)
+        ok = res.status == bt.ResultStatus.success and bt.is_valid_solution(
+            raw, res)
+        ckpt_runs.append(dict(objective=res.value, sweeps=res.loop,
+                              resumed=resumed, launches=ccounts))
+        print(f"[checkpoint {'resume' if resume else 'write'}] objective "
+              f"{res.value} sweeps {res.loop} resumed {resumed} file "
+              f"{ckpt.exists()} launches {ccounts} valid {ok}")
+        if not ok or not ckpt.exists() or resumed != resume:
+            fail(f"checkpoint run {len(ckpt_runs)}: valid {ok}, file "
+                 f"{ckpt.exists()}, resumed {resumed}")
+    if ckpt_runs[1]["objective"] > ckpt_runs[0]["objective"]:
+        fail(f"the resumed run is worse: {ckpt_runs}")
+
+    # ---- phase 17: the kernels line, then the result line
     main = per_instance[0]
     print(json.dumps({"kernels": [{
         "name": "psweep",
@@ -861,7 +1123,12 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"optimize scp200x1000": launches,
                              "solve scp200x1000": solve_rec["launches"]["psweep"],
-                             "optimize scp200x1000+card": fcounts["psweep"]},
+                             "optimize scp200x1000+card": fcounts["psweep"],
+                             "optimize qsap500x10": qcounts["psweep"],
+                             **{f"--auto:{m}": r["launches"]["psweep"]
+                                for m, r in meta_recs.items()},
+                             "checkpoint write": ckpt_runs[0]["launches"]["psweep"],
+                             "checkpoint resume": ckpt_runs[1]["launches"]["psweep"]},
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": main["ms"],
@@ -870,7 +1137,9 @@ def main() -> int:
         "bound_by": main["bound_by"],
         "library_ms": None,
         "instances": per_instance,
+        "per_replica_theta_delta": per_replica_rec,
         "optimize": optimize_rec,
+        "optimize_qsap500x10": qsap_rec,
     }, {
         "name": "dpselect",
         "route": "cuda",
@@ -890,7 +1159,8 @@ def main() -> int:
         "optimize": z_rec,
         "solve": z_solve_rec,
     }], "general_sweep": sweep_recs, "solve": solve_rec,
-        "optimize_general_sweep": fallback_rec}))
+        "optimize_general_sweep": fallback_rec, "meta": meta_recs,
+        "checkpoint": ckpt_runs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

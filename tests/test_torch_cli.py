@@ -29,6 +29,16 @@ from baryonyx_torch.observer import (
 CPU = ["--device", "cpu"]
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Eager torch ops on these small tensors gain nothing from threads,
+    and the test workers share the machine's cores: one thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_assign_parameter_scalars():
     p = SolverParameters()
     assert assign_parameter(p, "theta", "0.3")
@@ -142,11 +152,19 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
 
 
 def test_cli_auto_modes_say_they_are_not_available(tmp_path, monkeypatch, capsys):
+    """The meta modes run (the manual grid's 3,125 combos in one chunk of
+    as many replicas); an unknown one is refused."""
     lp = _model(tmp_path)
     monkeypatch.chdir(tmp_path)
-    assert main(CPU + ["--quiet", "--auto:manual", str(lp)]) == 1
-    assert "meta-optimizer modes are not ported" in capsys.readouterr().err
+    assert main(CPU + ["--quiet", "--auto:manual", "-p", "thread:3125",
+                       "-p", "chunk-size:2", "--time-limit", "1", "--seed",
+                       "3", str(lp)]) == 0
+    sols = list(tmp_path.glob("model.lp-*.sol"))
+    assert len(sols) == 1
+    pb = bt.parse_lp(lp.read_text())
+    assert bt.is_valid_solution(pb, bt.make_result(bt.make_context(0), str(sols[0])))
     assert main(CPU + ["--quiet", "--auto:bogus", str(lp)]) == 1
+    assert "unknown auto mode" in capsys.readouterr().err
 
 
 def test_cli_verbose_echoes_parameters(tmp_path, monkeypatch, capsys):

@@ -10,7 +10,9 @@ CUDA tensors, x and remaining bit-exact (the kernel is built with
 within 2e-4 / 2e-4 / 2e-3: with the keys in registers and in the
 shared-memory tile, at row blocks of 4, 2 and 16 rows, with a row length
 that the slot lanes do not divide, with +-1 factors and with a quadratic
-objective, and in the first design (the replica_thread variant). The
+objective, at a theta and a delta of its own for every replica (the
+meta-optimizers' input), and in the first design (the replica_thread
+variant). The
 knapsack DP kernel (csrc/dpselect.cu) is held against its plain version
 bit for bit on the DP rows of two Z instances (table widths 88 and 2048),
 for both objectives, on a block that mixes DP rows with others, in its
@@ -48,7 +50,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _chain(fn, cp, cost, push, keep, minimize, dev, block_size=4, quad_mat=None):
+def _chain(fn, cp, cost, push, keep, minimize, dev, block_size=4, quad_mat=None,
+           delta=0.01, theta=0.5):
     """SWEEPS sweeps from x = 0: push lanes schedule every row (as the
     optimizer's push phase does), the others their violated rows; a random
     30% of the (row, replica) pairs sit out."""
@@ -63,7 +66,7 @@ def _chain(fn, cp, cost, push, keep, minimize, dev, block_size=4, quad_mat=None)
         order = torch.argsort((~any_row[:-1]).to(torch.int8), stable=True)
         x, P, pi, S, viol, rem = fn(
             cp, x, P, pi, cost, sched, order.to(torch.int32),
-            torch.full((R,), 0.15, device=dev), 0.01, 0.5,
+            torch.full((R,), 0.15, device=dev), delta, theta,
             torch.tensor([17 + it, -3], dtype=torch.int32, device=dev),
             torch.zeros(R, device=dev), n_rows=any_row.sum(),
             minimize=minimize, block_size=block_size, quad_mat=quad_mat,
@@ -147,6 +150,37 @@ def test_kernel_matches_plain_version(cuda, name):
     # phase B ran for a real share of the pairs
     assert a[5] >= 0.25
     assert float((b[1][: cp.m_real] != 0).any(dim=1).float().mean()) >= 0.25
+    assert torch.equal(a[0], b[0]) and torch.equal(a[4], b[4])
+    for u, v, tol in zip(a[1:4], b[1:4], (2e-4, 2e-4, 2e-3)):
+        assert float((u - v).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_at_per_replica_theta_delta(cuda):
+    """theta and delta as [R] vectors, every replica its own, as the
+    meta-optimizers' combos give them."""
+    ctx = bt.make_context(0)
+    pb = preprocess(ctx, bt.parse_lp(random_set_cover_lp(60, 240, 0.05, seed=3)))
+    cp = compile_problem(
+        make_merged_constraints(ctx, pb), len(pb.vars.values), device=cuda
+    )
+    rng = np.random.default_rng(1)
+    push = torch.as_tensor(rng.random(R) < 0.5, device=cuda)[None, :]
+    keep = torch.as_tensor(rng.random((cp.m, R)) < 0.7, device=cuda)
+    cost = torch.as_tensor(
+        1.0 + np.arange(cp.n) + 0.01 * ((np.arange(cp.n) * 37) % 61),
+        dtype=torch.float32, device=cuda,
+    )
+    theta = torch.as_tensor(rng.uniform(0.2, 0.9, R), dtype=torch.float32,
+                            device=cuda)
+    delta = torch.as_tensor(rng.uniform(0.001, 0.05, R), dtype=torch.float32,
+                            device=cuda)
+    before = pw.psweep_kernel.launches
+    a = _chain(pw.psweep_reference, cp, cost, push, keep, True, cuda,
+               delta=delta, theta=theta)
+    b = _chain(pw.psweep, cp, cost, push, keep, True, cuda, delta=delta,
+               theta=theta)
+    assert pw.psweep_kernel.launches == before + SWEEPS
     assert torch.equal(a[0], b[0]) and torch.equal(a[4], b[4])
     for u, v, tol in zip(a[1:4], b[1:4], (2e-4, 2e-4, 2e-3)):
         assert float((u - v).abs().max()) <= tol

@@ -5,8 +5,9 @@
 admit a plan the card can launch: at most 232,448 bytes of shared memory
 (static part included), at most 1,024 threads, a replica group that
 divides 32, a grid of at least one CUDA block. The four shapes the smoke
-script drives (scp200x1000, the scpnre class, DP tables of width 88 and
-2048) must get the redesigned variants, not the first designs. Phase B of
+script drives (scp200x1000, the scpnre class, the quadratic qsap500x10,
+DP tables of width 88 and 2048) must get the redesigned variants, not the
+first designs. Phase B of
 the sweep kernel applies the slots of one row in parallel: that rests on
 the variables of a row being distinct, which is checked here on the four
 instance classes of tests/test_torch_layout.py.
@@ -36,6 +37,8 @@ SWEEP_SHAPES = {
     # name: (n, Kr, R, Bb, the variant it must get or None)
     "scp200x1000": (1024, 40, 2048, 4, "group"),
     "scpnre500x5000": (5120, 576, 2048, 4, "group"),
+    # random_qsap_lp(500, 10, seed=3): m 512, n 5120, Kr 16
+    "qsap500x10": (5120, 16, 2048, 4, "group"),
     "longest_rows": (1024, 2048, 2048, 4, None),
     "largest_block": (1024, 40, 2048, 16, None),
     "longest_rows_largest_block": (50_000, 2048, 32, 16, None),

@@ -11,6 +11,8 @@
 - The same on two Z (integer-factor) instances, through the Z sweep.
 - Without CUDA and without an explicit device the entry points raise;
   what the port does not cover is refused, never rerouted.
+- The random solver skips the exact enumeration of small instances, as
+  in the JAX package.
 - What the fused sweep does not take (float64, the random solver, an
   instance whose selection needs the full sort, a replica count it
   refuses) runs through the general sweep, chosen in ``one_step``; each
@@ -46,6 +48,16 @@ from baryonyx_torch.preprocess.merge import make_merged_constraints as tmerge
 REPO = Path(__file__).resolve().parent.parent
 LP = random_set_cover_lp(60, 240, 0.05, seed=11)
 BAND = 0.15
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Eager torch ops on these small tensors gain nothing from threads,
+    and the test workers share the machine's cores: one thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _ctx(mod):
@@ -165,6 +177,7 @@ def test_port_runs_without_jax_and_never_names_it():
     pattern = re.compile(r"baryonyx_tpu|^\s*(import jax|from jax)", re.M)
     files = list((REPO / "baryonyx_torch").rglob("*.py"))
     files += list((REPO / "baryonyx_torch").rglob("*.cu"))
+    files += list((REPO / "baryonyx_torch").rglob("*.cpp"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     for path in files:
@@ -184,23 +197,36 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 def test_uncovered_inputs_are_refused():
     ctx = bt.make_context(0)
-    ctx.parameters.limit = 10
-    z_quad = Z_ROW.replace("\nst\n", " + [ 4 x0 * x1 ] / 2\nst\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        bt.optimize(ctx, bt.parse_lp(z_quad), device="cpu")
-    raw = bt.parse_lp(LP)
-    ctx = bt.make_context(0)
-    ctx.parameters.checkpoint_path = "pop.npz"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        bt.optimize(ctx, raw, device="cpu")
-    ctx = bt.make_context(0)
-    ctx.parameters.mode = bt.ModeType.manual
-    with pytest.raises(NotImplementedError, match="meta-optimizer"):
-        bt.optimize(ctx, raw, device="cpu")
-    ctx = bt.make_context(0)
     ctx.parameters.solver = bt.SolverType.random
     with pytest.raises(NotImplementedError, match="random solver for Z"):
         bt.optimize(ctx, bt.parse_lp(Z_ROW), device="cpu")
+
+
+def test_random_solver_skips_the_exact_enumeration():
+    """On an instance of at most EXACT_N_MAX variables the random solver
+    runs, as in the JAX package, instead of returning the enumerated
+    optimum; the default solver enumerates."""
+    from baryonyx_torch.solver.exact import EXACT_N_MAX
+
+    lp = random_set_cover_lp(8, 16, 0.3, seed=3)
+    raw_t = bt.parse_lp(lp)
+    assert len(raw_t.vars.names) <= EXACT_N_MAX
+    results = {}
+    for solver in ("bastert", "random"):
+        ctx_t, ctx_j = _ctx(bt), _ctx(bx)
+        ctx_t.parameters.limit = ctx_j.parameters.limit = 20
+        for ctx, mod in ((ctx_t, bt), (ctx_j, bx)):
+            ctx.parameters.solver = getattr(mod.SolverType, solver)
+        results[solver] = (
+            bt.optimize(ctx_t, raw_t, device="cpu"),
+            bx.optimize(ctx_j, bx.parse_lp(lp)),
+        )
+    rt, rj = results["random"]
+    assert "exact" not in rt.method and "exact" not in rj.method
+    assert rt.method == rj.method and rt.loop == rj.loop > 0
+    rt, rj = results["bastert"]
+    assert rt.method == rj.method == "optimize+exact-enum"
+    assert rt.value == rj.value
 
 
 def _full_sort_lp():
