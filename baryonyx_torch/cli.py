@@ -26,6 +26,14 @@ file writing :1240-1270, --check :1227-1239):
 
 Single-file mode writes ``<file>-<pid>.sol``; multi-file mode appends to
 ``baryonyx-<pid>.res`` (reference: main.cpp:1240-1360).
+
+On N cards of one host, one process each:
+
+  torchrun --nproc-per-node=N -m baryonyx_torch --optimize file.lp
+
+Under torchrun (``WORLD_SIZE`` > 1) every process joins one process group
+(NCCL; gloo with ``--device cpu``) and runs its share of the replicas on
+card ``LOCAL_RANK``; only rank 0 prints and writes the result file.
 """
 
 from __future__ import annotations
@@ -280,6 +288,32 @@ def main(argv: Optional[List[str]] = None) -> int:
             files.append(arg)
         i += 1
 
+    rank0 = True
+    in_group = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if in_group:
+        # torchrun: one process per card; rank 0 speaks and writes
+        from baryonyx_torch.parallel import distributed
+
+        distributed.init_distributed(
+            device=None if device in (None, "cuda") else device
+        )
+        rank0 = distributed.rank() == 0
+        if not rank0:
+            verbose = 0
+    try:
+        return _run_files(
+            params, verbose, optimize, check_file, warmup, bench_csv,
+            bench_name, device, files, rank0,
+        )
+    finally:
+        if in_group:
+            distributed.shutdown()
+
+
+def _run_files(
+    params, verbose, optimize, check_file, warmup, bench_csv, bench_name,
+    device, files, rank0,
+) -> int:
     ctx = bx.make_context(verbose)
     ctx.set_parameters(params)
     if verbose >= 5:
@@ -358,14 +392,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         finished = time.strftime("%Y-%m-%d %X")
         _print_result_summary(ctx, res, pb)
 
-        if multi:
+        if multi and rank0:
             with open(res_path, "a") as fh:
                 value = res.solutions[-1].value if res.solutions else float("nan")
                 fh.write(
                     f"{path} {res.status.name} {value} "
                     f"{time.monotonic() - t0:.3f}\n"
                 )
-        else:
+        elif rank0:
             # reference: main.cpp:1240-1270 — problem-statistics resume
             # block, start/finish timestamps, then the result resume
             from baryonyx_torch.io.sol_io import problem_resume

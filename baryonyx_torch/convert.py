@@ -5,6 +5,11 @@ solve-mode ``DeviceState`` arrive as dicts of numpy arrays, one entry per field 
 each field; a static int becomes a 0-d array, an absent optional field a
 0-d object array holding None). The functions here return the port's
 objects on one device, so both packages can start from the same state.
+
+From the JAX package's sharded layouts, each rank takes its own part:
+``replica_slice`` (its slice of the replica axis), ``population_shard``
+(its rows of the [D·P, n] population) and ``row_shard`` (its shard of a
+stacked row-sharded CompiledProblem).
 """
 
 from __future__ import annotations
@@ -73,3 +78,38 @@ def device_state(
     }
     kw.update({k: int(np.asarray(d[k])) for k in host})
     return DeviceState(gen=gen, **kw)
+
+
+def replica_slice(
+    d: Dict[str, np.ndarray], rank: int, size: int, device: DeviceLike = None
+) -> ReplicaState:
+    """Rank ``rank``'s share of the JAX ReplicaState over ``size`` ranks:
+    every field's trailing replica axis, sliced."""
+    R = np.asarray(d["kappa"]).shape[0]
+    sl = slice(rank * R // size, (rank + 1) * R // size)
+    return replica_state({k: np.asarray(d[k])[..., sl] for k in ReplicaState._fields}, device)
+
+
+def population_shard(
+    d: Dict[str, np.ndarray], rank: int, size: int, device: DeviceLike = None
+) -> Population:
+    """Rank ``rank``'s population: its rows of the JAX [D·P, n] one."""
+    P = np.asarray(d["value"]).shape[0] // size
+    return population(
+        {k: np.asarray(d[k])[rank * P:(rank + 1) * P] for k in Population._fields},
+        device,
+    )
+
+
+def row_shard(
+    d: Dict[str, np.ndarray], shard: int, device: DeviceLike = None
+) -> CompiledProblem:
+    """Shard ``shard`` of the JAX package's stacked row-sharded
+    CompiledProblem (every array with a leading [D] axis)."""
+    fields = {}
+    for f in dataclasses.fields(CompiledProblem):
+        v = np.asarray(d[f.name])
+        if f.type not in ("int", "bool") and v.dtype != object:
+            v = v[shard]
+        fields[f.name] = v
+    return compiled_problem(fields, device)

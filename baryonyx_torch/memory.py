@@ -7,6 +7,10 @@ the padded device layout).
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
+import torch
+
 from baryonyx_torch.ops import psweep as pw
 
 
@@ -61,3 +65,25 @@ def estimated_peak_bytes(
         if general_sweep or cp.has_z:
             transient += 2 * B * cp.Kr * cp.quad_var.shape[1] * R * itemsize
     return replica_state_bytes(cp, R, itemsize) * 2 + transient
+
+
+def device_budget_bytes(device: torch.device) -> Optional[int]:
+    """Bytes the optimize state may use on a CUDA device: three quarters
+    of its memory; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    _free, total = torch.cuda.mem_get_info(device)
+    return int(total * 0.75)
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """Bytes in use (this process's tensors) and bytes there are, per
+    visible CUDA device; empty without one."""
+    stats = {}
+    for i in range(torch.cuda.device_count() if torch.cuda.is_available() else 0):
+        _free, total = torch.cuda.mem_get_info(i)
+        stats[f"cuda:{i}"] = {
+            "bytes_in_use": torch.cuda.memory_allocated(i),
+            "bytes_limit": total,
+        }
+    return stats

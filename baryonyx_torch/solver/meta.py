@@ -26,6 +26,7 @@ from baryonyx_torch.core.model import ObjectiveType, Problem, RawProblem
 from baryonyx_torch.core.params import ModeType, PreprocessorOptions
 from baryonyx_torch.core.result import Result, ResultStatus
 from baryonyx_torch.device import DeviceLike, resolve_device
+from baryonyx_torch.parallel.distributed import from_rank0, world_size
 from baryonyx_torch.preprocess.fixing import preprocess, split, unpreprocess
 from baryonyx_torch.solver import optimize as opt
 
@@ -97,7 +98,8 @@ def manual_optimize(
     ]
     combos = np.array(list(itertools.product(*axes)))  # [C, 5]
     C = len(combos)
-    R = opt.default_replicas(p, dev)
+    # the replica count optimize_compiled will run, over every rank
+    R = opt.default_replicas(p, dev, world_size())
     n_chunks = max(1, -(-C // R))
     budget = p.time_limit if p.time_limit > 0 else 10.0
 
@@ -284,7 +286,10 @@ def branch_optimize(
 
     processed = 0
     while nodes and processed < node_limit:
-        if time.monotonic() - t0 > wall_budget:
+        # rank 0's clock decides for every rank of a process group: a rank
+        # that stopped here alone would leave the others' collectives
+        # waiting
+        if from_rank0(int(time.monotonic() - t0 > wall_budget), dev):
             break
         nodes.sort(key=lambda t: (t[0], t[1]))
         _, _, node_pb, node_res = nodes.pop(0)

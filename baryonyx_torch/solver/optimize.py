@@ -1,5 +1,5 @@
 """Optimize mode: evolutionary multi-start as batched solver replicas, on
-one device.
+one device or over the ranks of a process group.
 
 The reference spawns N threads, each looping restart → annealed run → push
 phase, sharing one solution population under a mutex
@@ -20,6 +20,15 @@ hyperparameter combo per replica (``hp_vectors``: theta, delta,
 kappa_min, kappa_step, init_policy_random) and read back each replica's
 best score. ``checkpoint_path`` saves the population every
 ``checkpoint_every`` seconds and resumes from it at start.
+
+Under a process group (parallel/distributed.py: one process per card,
+``torchrun`` or ``init_distributed``) each rank runs this optimizer on its
+slice of the replica axis with its own random stream and its own full
+population; the ranks meet once per chunk (the top-K population exchange,
+the flip-counter sum, the host loop's stats and decisions) and, with the
+``cycle`` order, once per step. A state over the device budget even at
+128 replicas per rank shards the constraint rows instead
+(parallel/rowshard.py).
 
 Replica phases: ANNEAL (kappa-annealed feasibility run), PUSH (one
 objective-amplified sweep), PUSH_ITER (recovery sweeps after a push, kappa
@@ -49,6 +58,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from baryonyx_torch.checkpoint import load_population, save_population
 from baryonyx_torch.core.context import Context
@@ -66,6 +76,8 @@ from baryonyx_torch.core.params import (
 from baryonyx_torch.core.result import Result, ResultStatus, Solution
 from baryonyx_torch.device import DeviceLike, resolve_device
 from baryonyx_torch.memory import estimated_peak_bytes
+from baryonyx_torch.parallel.mesh import Mesh, make_mesh
+from baryonyx_torch.parallel.rowshard import hbm_budget_bytes, optimize_row_sharded
 from baryonyx_torch.ops import psweep as pw
 from baryonyx_torch.ops import zsweep as zs
 from baryonyx_torch.ops.layout import CompiledProblem, compile_problem
@@ -85,6 +97,7 @@ from baryonyx_torch.solver.population import (
 PHASE_ANNEAL, PHASE_PUSH, PHASE_PUSH_ITER = 0, 1, 2
 FLIP_DECAY = 0.9  # per host chunk (see evolve)
 INT_MAX = 2**31 - 1
+EXCHANGE_K = 16  # population members each rank sends per chunk
 
 
 class ReplicaState(NamedTuple):
@@ -137,6 +150,9 @@ class EvolveInputs(NamedTuple):
     quad_fac: Optional[torch.Tensor] = None
     quad_mat: Optional[torch.Tensor] = None
     quad_terms: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    # the process group whose ranks share the replica axis (None: this
+    # process runs every replica)
+    mesh: Optional[Mesh] = None
 
 
 def fused_sweep_applies(
@@ -378,11 +394,15 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
     push_idx = torch.where(restart | anneal_found, 0, push_idx).to(torch.int32)
     best_rem = torch.where(restart, INT_MAX, best_rem).to(torch.int32)
 
-    # cycle advances globally when any replica pushed
+    # cycle advances globally when any replica pushed; over a process
+    # group any() must agree across the ranks (the order code is shared)
     order_code = state.order_code
     if hp["use_cycle"]:
+        any_push = is_push.any()
+        if ev.mesh is not None:
+            any_push = ev.mesh.all_reduce(any_push.to(torch.int32), "max") > 0
         order_code = torch.where(
-            is_push.any(), (order_code + 1) % common.N_CYCLE_STATES, order_code
+            any_push, (order_code + 1) % common.N_CYCLE_STATES, order_code
         ).to(torch.int32)
 
     # restarting replicas recompute their violated set from the new x
@@ -409,45 +429,87 @@ def quad_value(quad_terms, x: torch.Tensor, dtype) -> torch.Tensor:
 
 def evolve(ev: EvolveInputs, state: OptState, n_steps: int) -> OptState:
     """``n_steps`` evolution steps, then the per-chunk flip-counter decay
-    (an exponential decay keeps it biased to recent instability)."""
+    (an exponential decay keeps it biased to recent instability).
+
+    Over a process group the steps run on the rank's replica slice and
+    population with no collective (but the ``cycle`` policy's); then the
+    ranks sum their flip counts, and every rank's top-K members go to
+    every rank's population (``exchange_top_k``)."""
     flips0 = state.flips
     for _ in range(n_steps):
         state = one_step(ev, state)
-    return state._replace(flips=FLIP_DECAY * flips0 + (state.flips - flips0))
+    # in-chunk accumulation stays linear so the ranks' counts sum exactly
+    flip_delta = state.flips - flips0
+    if ev.mesh is not None:
+        flip_delta = ev.mesh.all_reduce(flip_delta, "sum")
+    state = state._replace(flips=FLIP_DECAY * flips0 + flip_delta)
+    if ev.mesh is not None:
+        state = state._replace(pop=exchange_top_k(ev, state))
+    return state
 
 
-def default_replicas(params: SolverParameters, device: torch.device) -> int:
+def exchange_top_k(ev: EvolveInputs, state: OptState) -> Population:
+    """The once-per-chunk population exchange: every rank's best
+    K = min(EXCHANGE_K, P) members (x, value, remaining) gathered in rank
+    order, then inserted into this rank's population. This rank's own
+    members fall to the hash dedup, so a one-rank group changes nothing.
+    K·D of the population per chunk instead of R every step (the JAX
+    package's round-2 design).
+
+    The victims, one uniform draw per candidate among the worst 4/5 as in
+    ``one_step`` (two candidates may draw one slot: the later one takes
+    it), come from a generator seeded from this rank's stream and the
+    step count, which leaves that stream where it was (as the JAX
+    package's ``fold_in(key, 0x5EED)``)."""
+    pop, mesh = state.pop, ev.mesh
+    K = min(EXCHANGE_K, pop.x.shape[0])
+    gx = mesh.all_gather(pop.x[:K])
+    gv = mesh.all_gather(pop.value[:K])
+    gr = mesh.all_gather(pop.remaining[:K])
+    dev = pop.x.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(
+        (state.gen.initial_seed() * 0x5EED + state.sweeps * 0x9E3779B9)
+        & ((1 << 63) - 1)
+    )
+    n_cand = gx.shape[0]
+    victims = draw_victims(g, n_cand, pop.x.shape[0], dev)
+    return batch_insert(
+        pop, gx, gv, gr, torch.ones(n_cand, dtype=torch.bool, device=dev),
+        victims, ev.hash_weights, ev.minimize,
+    )
+
+
+def default_replicas(
+    params: SolverParameters, device: torch.device, n_ranks: int = 1
+) -> int:
     """reference: get_thread_number (itm-optimizer-common.hpp:757-774) —
-    thread <= 0 means auto: 512 replicas on a CUDA device, 16 on the CPU
-    (tests)."""
+    thread <= 0 means auto: 512 replicas per rank on a CUDA device, 16 in
+    all on the CPU (tests). The replica axis splits evenly over the
+    ranks: the count rounds up to a multiple of ``n_ranks``."""
     if params.thread > 0:
-        return params.thread
-    return 512 if device.type == "cuda" else 16
-
-
-def device_budget_bytes(device: torch.device) -> Optional[int]:
-    """Bytes the optimize state may use on a CUDA device: three quarters
-    of its memory; None on the CPU."""
-    if device.type != "cuda":
-        return None
-    _free, total = torch.cuda.mem_get_info(device)
-    return int(total * 0.75)
+        r = params.thread
+    else:
+        r = 512 * n_ranks if device.type == "cuda" else 16
+    return -(-r // n_ranks) * n_ranks
 
 
 def replica_batch(
     ctx: Context, cp: CompiledProblem, params: SolverParameters,
-    device: torch.device, grow: bool = True,
+    device: torch.device, grow: bool = True, n_ranks: int = 1,
 ) -> Tuple[int, int]:
-    """The replica batch R and the row block size the optimizer runs
-    with: on CUDA the largest of (2048, 4), (1024, 4), (1024, 8) the
-    fused sweep takes (an explicit thread count or block size wins, and
-    ``grow=False`` keeps ``default_replicas``: the meta-optimizers must
-    predict R); Z instances, and those the general sweep runs, keep
-    ``default_replicas`` and the requested block size, as the JAX package
-    does. Then R is halved while the state overflows the device budget."""
+    """The replica batch R (over all ``n_ranks`` ranks) and the row block
+    size the optimizer runs with: on CUDA each rank runs the largest of
+    (2048, 4), (1024, 4), (1024, 8) the fused sweep takes (an explicit
+    thread count or block size wins, and ``grow=False`` keeps
+    ``default_replicas``: the meta-optimizers must predict R); Z
+    instances, and those the general sweep runs, keep ``default_replicas``
+    and the requested block size, as the JAX package does. Then R per
+    rank is halved while the state overflows the device budget and stays
+    above 128 (``optimize_compiled`` decides what happens past that)."""
     f64 = params.float_type == FloatType.float64
     dtype = torch.float64 if f64 else torch.float32
-    R = default_replicas(params, device)
+    R = default_replicas(params, device, n_ranks) // n_ranks
     block_size = params.block_size
     fused = not cp.has_z and fused_sweep_applies(
         cp, R, dtype, device, params.solver == SolverType.random
@@ -463,26 +525,27 @@ def replica_batch(
                 block_size = bs
                 break
 
-    # size the replica batch by the device budget; past it at R=128 the
-    # JAX package shards rows across devices, which is not ported
-    budget = device_budget_bytes(device)
-    if budget is not None:
-        def peak(R):
-            return estimated_peak_bytes(
-                cp, R, itemsize=8 if f64 else 4, B=block_size,
-                general_sweep=not fused and not cp.has_z,
-            )
+    budget = hbm_budget_bytes(device)
+    while state_peak_bytes(cp, R, params, device, block_size) > budget and R > 128:
+        R //= 2
+    return R * n_ranks, block_size
 
-        while peak(R) > budget and R > 128:
-            R //= 2
-        if peak(R) > budget:
-            _refuse(
-                f"an optimize state over the device budget "
-                f"({peak(R)} bytes at R={R}, budget "
-                f"{budget}), which needs row sharding,",
-                "Queue 1 item 11",
-            )
-    return R, block_size
+
+def state_peak_bytes(
+    cp: CompiledProblem, R: int, params: SolverParameters,
+    device: torch.device, block_size: int,
+) -> int:
+    """``estimated_peak_bytes`` of one rank's optimize state at R replicas,
+    through the sweep ``one_step`` would pick."""
+    f64 = params.float_type == FloatType.float64
+    fused = not cp.has_z and fused_sweep_applies(
+        cp, R, torch.float64 if f64 else torch.float32, device,
+        params.solver == SolverType.random,
+    )
+    return estimated_peak_bytes(
+        cp, R, itemsize=8 if f64 else 4, B=block_size,
+        general_sweep=not fused and not cp.has_z,
+    )
 
 
 def _budget_loop(
@@ -500,14 +563,24 @@ def _budget_loop(
     probe_fn=None,
     diversify_fn=None,
     value_sign: float = 1.0,
+    save_fn=None,
+    fleet_fn=None,
 ) -> OptState:
     """The host-side chunk loop: run `chunk` evolve steps at a time until
     the wall-clock budget or the total sweep budget is exhausted
     (reference terminator: itm-optimizer-common.hpp:836-859). The chunk
     length adapts so each host round trip buys ~0.5 s of device work.
     After each chunk: the debug probe (``probe_fn``) and, every
-    ``params.checkpoint_every`` seconds, the population checkpoint.
-    Ctrl-C returns the best population found so far."""
+    ``params.checkpoint_every`` seconds, the population checkpoint
+    (``save_fn``). Ctrl-C returns the best population found so far.
+
+    Over a process group every rank runs this loop, and the next
+    collective hangs if one rank picks another chunk length or stops a
+    chunk earlier. So each rank proposes its decisions (the next chunk
+    length, a checkpoint, the end of the budget) from its own clock, and
+    ``fleet_fn(stats, decisions)`` — the one collective of the per-chunk
+    fetch — gives every rank the fleet's stats and rank 0's decisions;
+    no other clock reading steers the loop."""
     best_lb = float("-inf")  # bound_fn orientation: higher is tighter
     best_seen = (np.inf, np.inf)  # (remaining, value) of the pool head
     stagnant = 0
@@ -517,7 +590,25 @@ def _budget_loop(
             state = run_evolve(state, chunk)
             # one small fetch per chunk synchronizes with the device
             stats = stats_fn(state)
-            dt_chunk = time.monotonic() - t_chunk
+            now = time.monotonic()
+            # sweep-budget mode (no time limit) keeps the chunk FIXED so
+            # runs are reproducible
+            next_chunk = chunk
+            if time_limit != float("inf"):
+                dt_chunk = now - t_chunk
+                if dt_chunk < 0.35 and chunk < (1 << 14):
+                    next_chunk = min(chunk * 4, 1 << 14)
+                elif dt_chunk > 1.5 and chunk > 1:
+                    next_chunk = max(chunk // 2, 1)
+            decisions = (
+                next_chunk,
+                bool(params.checkpoint_path)
+                and now - last_ckpt >= params.checkpoint_every,
+                now - budget_t0 >= time_limit,
+            )
+            if fleet_fn is not None:
+                stats, decisions = fleet_fn(stats, decisions)
+            chunk, ckpt_due, out_of_time = decisions
             # cataclysm on stagnation: when the pool head stops improving
             # for several chunks, keep the elite fifth and re-randomize
             # the rest
@@ -530,13 +621,6 @@ def _budget_loop(
             if diversify_fn is not None and stagnant >= 6:
                 state = diversify_fn(state)
                 stagnant = 0
-            # sweep-budget mode (no time limit) keeps the chunk FIXED so
-            # runs are reproducible
-            if time_limit != float("inf"):
-                if dt_chunk < 0.35 and chunk < (1 << 14):
-                    chunk = min(chunk * 4, 1 << 14)
-                elif dt_chunk > 1.5 and chunk > 1:
-                    chunk = max(chunk // 2, 1)
             if ctx.update_cb:
                 ctx.update_cb(
                     int(stats[0]),
@@ -566,25 +650,31 @@ def _budget_loop(
                 # --debug: device-state invariants per chunk
                 # (reference: bx_assert layer, debug.hpp:75-117)
                 validate_replica_state(probe_fn(state), "optimize chunk")
-            if params.checkpoint_path and (
-                time.monotonic() - last_ckpt >= params.checkpoint_every
-            ):
-                save_population(params.checkpoint_path, state.pop)
+            if ckpt_due:
+                save_fn(state)
                 last_ckpt = time.monotonic()
-            if (time.monotonic() - budget_t0) >= time_limit:
-                break
-            if float(stats[2]) >= sweep_budget:
+            if out_of_time or float(stats[2]) >= sweep_budget:
                 break
     except KeyboardInterrupt:
         ctx.notice("optimize: interrupted; returning best population\n")
     return state
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch solver yet (ROADMAP.md "
-        f"{item})"
+def fleet_stats(mesh: Mesh, stats: np.ndarray, decisions, value_sign: float):
+    """The host loop's per-chunk collective over a process group: every
+    rank's [best remaining, best value, sweeps, restarts] and decisions in
+    one all-gather. Returns the fleet's stats (its best (remaining, value)
+    member, the sweeps, the restarts summed) and rank 0's decisions."""
+    row = np.concatenate([stats, np.asarray(decisions, np.float64)])
+    rows = mesh.all_gather(
+        torch.as_tensor(row[None, :], dtype=torch.float64, device=mesh.device)
+    ).cpu().numpy()
+    best = min(
+        range(len(rows)), key=lambda d: (rows[d, 0], value_sign * rows[d, 1])
     )
+    fleet = np.array([rows[best, 0], rows[best, 1], rows[0, 2], rows[:, 3].sum()])
+    chunk, ckpt_due, out_of_time = rows[0, 4:7]
+    return fleet, (int(chunk), bool(ckpt_due), bool(out_of_time))
 
 
 def optimize_compiled(
@@ -641,10 +731,19 @@ def optimize_compiled(
             common.finalize(ret, pb, len(constraints), t0)
             return ret
 
+    # under a process group this rank runs a slice of the replicas with
+    # a random stream of its own; the host's numpy draws (the population,
+    # the replicas' starts, the row route's lanes) are the same on every
+    # rank, so every rank takes rank 0's seed (the automatic one is each
+    # rank's own clock)
+    mesh = make_mesh(device=dev) if dist.is_initialized() else None
+    n_ranks = mesh.size if mesh is not None else 1
     seed = params.seed if params.seed else int(time.time())
+    if mesh is not None:
+        seed = mesh.from_rank0(seed)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen.manual_seed(mesh.seed(seed) if mesh is not None else seed)
 
     try:
         cp = compile_problem(
@@ -682,7 +781,31 @@ def optimize_compiled(
     cost_orig = np.pad(cost_orig_real, (0, pad))
     cost_norm = np.pad(cost_norm_real, (0, pad))
 
-    R, block_size = replica_batch(ctx, cp, params, dev, grow=hp_vectors is None)
+    R, block_size = replica_batch(
+        ctx, cp, params, dev, grow=hp_vectors is None, n_ranks=n_ranks
+    )
+    R_local = R // n_ranks
+    # past the device budget at 128 replicas per rank, shard the
+    # constraint rows over the ranks (0/1 and ±1 rows, linear costs);
+    # otherwise say so and go on
+    budget = hbm_budget_bytes(dev)
+    peak = state_peak_bytes(cp, R_local, params, dev, block_size)
+    if peak > budget:
+        if n_ranks > 1 and not cp.has_z and not cp.has_quad:
+            ctx.warning(
+                "replicated state ({} per card at R={}) exceeds the device "
+                "budget ({}); sharding constraint rows across {} ranks\n",
+                peak, R, budget, n_ranks,
+            )
+            return _optimize_by_rows(
+                ctx, pb, constraints, n, cost_norm_real, cost_orig_real,
+                minimize, mesh, rng, ret, t0,
+            )
+        ctx.warning(
+            "replicated optimize state exceeds the device memory budget "
+            "and row sharding does not apply here (single device, or "
+            "Z/quadratic rows); proceeding — the runtime may OOM\n"
+        )
     P_size = params.init_population_size
 
     # vectorized host oracle for the population init: flat (factor, var)
@@ -825,6 +948,10 @@ def optimize_compiled(
             torch.as_tensor(_qf, dtype=dtype, device=dev),
         )
 
+    # the host draws below cover all R replicas, the same on every rank;
+    # the card gets only this rank's slice of them
+    sl = mesh.replica_range(R) if mesh is not None else slice(None)
+
     # per-replica hyperparameter sweep axis (see docstring): combos tile
     # cyclically onto the replicas
     hp_r: dict = {}
@@ -838,7 +965,7 @@ def optimize_compiled(
         for k in ("theta", "delta", "kappa_min", "kappa_step"):
             if k in hp_r:
                 # rounded to the solver's type, as the sweep computes with it
-                hp[k] = torch.as_tensor(hp_r[k], dtype=dtype, device=dev)
+                hp[k] = torch.as_tensor(hp_r[k][sl], dtype=dtype, device=dev)
 
     # replica init: a quarter of the replicas start from a zero x plus
     # the reinit mutation, like the reference's optimize threads
@@ -887,24 +1014,27 @@ def optimize_compiled(
         rand_x = (rng.random((R, cp.n)) < 0.5).astype(np.int32)
         rand_x[:, n:] = 0
         x0_np = np.where(use_rand[:, None], rand_x, x0_np)
-    x0 = torch.as_tensor(x0_np.T.copy(), device=dev)  # int32[n, R]
+    x0 = torch.as_tensor(x0_np[sl].T.copy(), device=dev)  # int32[n, R_local]
     # first ladder rung (reference reinit's first call bumps kappa_append
     # before the first inner run), from each replica's kappa_min
     append0 = params.init_kappa_improve_start + params.init_kappa_improve_increase
-    kmin0 = hp_r.get("kappa_min", params.kappa_min)
+    kmin0 = hp_r["kappa_min"][sl] if "kappa_min" in hp_r else params.kappa_min
     kappa0 = kmin0 + (params.kappa_max - kmin0) * (
         append0 if append0 < params.init_kappa_improve_stop else 0.0
     )
     order_code = common.ORDER_CODES.get(params.order, 0)
 
     def full(v, dt):
-        return torch.as_tensor(v, dtype=dt, device=dev).expand(R).contiguous()
+        return torch.as_tensor(v, dtype=dt, device=dev).expand(R_local).contiguous()
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     rs = ReplicaState(
         x=x0,
-        P=torch.zeros((cp.m, cp.Kr, R), dtype=dtype, device=dev),
-        pi=torch.zeros((cp.m, R), dtype=dtype, device=dev),
-        S=torch.zeros((cp.n, R), dtype=dtype, device=dev),
+        P=zeros(cp.m, cp.Kr, R_local),
+        pi=zeros(cp.m, R_local),
+        S=zeros(cp.n, R_local),
         viol=violated_mask(cp, x0),
         kappa=full(kappa0, dtype),
         kappa_start=full(kappa0, dtype),
@@ -937,6 +1067,7 @@ def optimize_compiled(
         quad_fac=quad_fac_norm,
         quad_mat=quad_mat,
         quad_terms=quad_terms,
+        mesh=mesh,
     )
 
     # Stopping: with a time limit, run until it expires (reference:
@@ -968,7 +1099,7 @@ def optimize_compiled(
         if cp.has_z:
             if cp.Wdp:
                 zs.dp_select_kernel.load()
-        elif fused_sweep_applies(cp, R, dtype, dev, use_random):
+        elif fused_sweep_applies(cp, R_local, dtype, dev, use_random):
             pw.psweep_kernel.load()
     budget_t0 = time.monotonic()
     chunk = max(1, params.chunk_size)
@@ -992,8 +1123,11 @@ def optimize_compiled(
         )
         return st._replace(pop=pop2)
 
+    # the cataclysm, the debug probe and the dual-bound print run on one
+    # process only, as in the JAX package: over a process group the
+    # population and the replicas are the ranks' own
     probe_fn = None
-    if params.debug:
+    if params.debug and mesh is None:
         def probe_fn(st: OptState) -> dict:
             rs = st.replicas
             probe = torch.stack([
@@ -1009,7 +1143,7 @@ def optimize_compiled(
             return dict(zip(keys, probe), m=cp.m_real)
 
     bound_fn = None
-    if params.print_level > 0:
+    if params.print_level > 0 and mesh is None:
         def bound_fn(st):
             lb = common.dual_bound(
                 cp, st.replicas.pi[:, 0].cpu().numpy(), cost_norm, minimize
@@ -1017,15 +1151,38 @@ def optimize_compiled(
             # second element: tightness score (higher = tighter)
             return lb, (lb if minimize else -lb)
 
+    value_sign = 1.0 if minimize else -1.0
+
+    def save_fn(st: OptState) -> None:
+        # over a process group: the ranks' populations side by side
+        # ([D·P, n], the JAX package's layout), written by rank 0
+        pop_st = st.pop
+        if mesh is not None:
+            pop_st = Population(*[mesh.all_gather(t) for t in st.pop])
+            if mesh.rank != 0:
+                return
+        save_population(params.checkpoint_path, pop_st)
+
+    fleet_fn = None
+    if mesh is not None:
+        def fleet_fn(stats, decisions):
+            return fleet_stats(mesh, stats, decisions, value_sign)
+
     state = _budget_loop(
         ctx, params, state, lambda st, k: evolve(ev, st, k), stats_fn, chunk,
         time_limit, sweep_budget, budget_t0, last_ckpt, bound_fn=bound_fn,
-        probe_fn=probe_fn, diversify_fn=diversify,
-        value_sign=1.0 if minimize else -1.0,
+        probe_fn=probe_fn, diversify_fn=diversify if mesh is None else None,
+        value_sign=value_sign, save_fn=save_fn, fleet_fn=fleet_fn,
     )
 
     # extraction (reference: :869-900); best LAST to match Result.best
     pop = state.pop
+    if mesh is not None:
+        # every rank's population, re-sorted as one on the host: every
+        # rank returns the same Result
+        g = [mesh.all_gather(t).cpu() for t in pop]
+        idx = np.lexsort((value_sign * g[1].double().numpy(), g[2].numpy()))
+        pop = Population(*[t[torch.as_tensor(idx)] for t in g])
     rem0 = int(pop.remaining[0])
     if rem0 == 0:
         ret.status = ResultStatus.success
@@ -1035,14 +1192,16 @@ def optimize_compiled(
         ret.status = ResultStatus.limit_reached
     ret.remaining_constraints = rem0
     ret.loop = state.sweeps
+    # the per-chunk sum leaves every rank the same flip counts
     fl = state.flips[:n].cpu().numpy()
     if fl.size and fl.max() > 0:
         ret.annoying_variable = int(np.argmax(fl))
     if hp_vectors is not None:
         # per-replica quality readout for the meta-optimizers
-        ret.replica_best_values = (
-            state.replicas.best_value.cpu().numpy().astype(np.float64)
-        )
+        best_values = state.replicas.best_value
+        if mesh is not None:  # in replica order: rank by rank
+            best_values = mesh.all_gather(best_values)
+        ret.replica_best_values = best_values.cpu().numpy().astype(np.float64)
 
     if params.storage == StorageType.one:
         want = [0]
@@ -1061,6 +1220,41 @@ def optimize_compiled(
     ret.replicas = R
     ret.block_size = block_size
 
+    common.finalize(ret, pb, len(constraints), t0)
+    if ctx.finish_cb:
+        ctx.finish_cb(ret)
+    return ret
+
+
+def _optimize_by_rows(
+    ctx: Context, pb: Problem, constraints, n: int,
+    cost_norm: np.ndarray, cost_orig: np.ndarray, minimize: bool,
+    mesh: Mesh, rng: np.random.Generator, ret: Result, t0: float,
+) -> Result:
+    """``optimize_compiled``'s end on the row-sharded route
+    (parallel/rowshard.py), its Result marked ``+rowshard``."""
+    params = ctx.parameters
+    x, rem, value, sweeps, _restarts = optimize_row_sharded(
+        ctx, constraints, n, cost_norm, cost_orig,
+        float(pb.objective.value), minimize, mesh, params, rng,
+    )
+    ret.method += "+rowshard"
+    ret.loop = sweeps
+    ret.remaining_constraints = int(rem)
+    if rem == 0:
+        ret.status = ResultStatus.success
+        ret.solutions.append(Solution([int(v) for v in x], float(value)))
+    else:
+        ret.status = (
+            ResultStatus.time_limit_reached
+            if params.time_limit > 0
+            else ResultStatus.limit_reached
+        )
+        ret.solutions.append(
+            Solution(
+                [int(v) for v in x], float("inf") if minimize else float("-inf")
+            )
+        )
     common.finalize(ret, pb, len(constraints), t0)
     if ctx.finish_cb:
         ctx.finish_cb(ret)

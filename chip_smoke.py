@@ -95,11 +95,32 @@ baryonyx_torch/csrc, then:
      (scp200x1000, R = 512, every replica at a combo of its own: the first
      chunk varies delta, kappa_min, kappa_step and init_policy_random, a
      later one theta too) holds the kernel against its plain version
-     again, x bit for bit;
+     again (x bit for bit, P, pi and S within phase 1's tolerances) and
+     times it as phase 3 does, with its byte bound;
  16. population checkpoints: optimize on scp200x1000 for 3 s writing
      build/checkpoint-scp200x1000.npz after every chunk, then a second 3 s
      run that must say it resumed from it and be no worse;
- 17. prints one JSON line with every kernel's numbers, then the last
+ 17. a one-rank NCCL group (a fresh process, so that later phases see no
+     process group): baryonyx_torch.optimize on scp200x1000 (R = 2048,
+     B = 4, the cycle order, a fixed budget of 400 sweeps in 4 chunks)
+     through the group's path, then through the plain path: the same
+     Result bit for bit (solutions, values, sweeps, annoying variable),
+     and kernel A launched once per sweep through the group's path;
+ 18. two gloo ranks sharing the card (NCCL refuses two ranks on one
+     device), 1024 replicas each, optimize on scp200x1000 for 4 s: both
+     ranks return the same valid Result, the first top-K exchange kept
+     each rank's best in the other's population (or lost it only to a
+     later candidate that drew the same victim slot), each rank launches
+     kernel A once per sweep; prints the replica-sweeps/s over both ranks
+     beside phase 2's one-process figure;
+ 19. the row route at two gloo ranks on the card: optimize on
+     scp200x1000 past a forced device budget (BARYONYX_HBM_BUDGET=5000)
+     must take it (method "+rowshard") and return a valid cover; then 3
+     row-sharded sweeps of each rank's shard on the card and on the CPU,
+     from x = 0 and the same injected tie noise: x and remaining equal,
+     P and pi within phase 8's tolerances. Every rank of phases 17-19 is
+     a spawned process with a join timeout (tests/spawn_ranks.py);
+ 20. prints one JSON line with every kernel's numbers, then the last
      line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line. Without a CUDA device, or
@@ -131,6 +152,11 @@ FALLBACK_TIME_LIMIT_S = 5.0  # optimize through the general sweep
 QSAP_TIME_LIMIT_S = 6.0  # optimize on qsap500x10
 META_TIME_LIMIT_S = {"manual": 7.0, "nlopt": 4.0, "branch": 4.0}
 CHECKPOINT_TIME_LIMIT_S = 3.0  # each of the two checkpoint runs
+GROUP_SWEEPS = 400  # the one-rank group's fixed sweep budget...
+GROUP_CHUNK = 100  # ...in 4 chunks (the cataclysm of one process needs 7)
+TWO_RANKS_TIME_LIMIT_S = 4.0  # optimize at 2 ranks on one card
+ROW_TIME_LIMIT_S = 3.0  # optimize through the row route
+RANKS_TIMEOUT_S = 240.0  # no spawned rank outlives this
 SWEEP_R = 32  # replicas of the general sweep's card-against-CPU check
 SWEEP_TOL = 1e-5  # absolute plus relative, on P, pi and S
 DP_R = 512  # replicas of the DP parity phase (the Z path's default R)
@@ -141,6 +167,151 @@ TOL = {"P": 2e-4, "pi": 2e-4, "S": 2e-3}
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# ---- phases 17-19 run their ranks in fresh processes (tests/spawn_ranks.py),
+# so these functions live at the top level, where a spawned rank finds them
+
+
+def _summary(res, raw) -> dict:
+    import baryonyx_torch as bt
+
+    return dict(
+        status=res.status.name, value=res.value, loop=res.loop,
+        remaining=res.remaining_constraints, method=res.method,
+        annoying_variable=res.annoying_variable, replicas=res.replicas,
+        block_size=res.block_size,
+        solutions=[(list(s.variables), s.value) for s in res.solutions],
+        valid=bool(res.solutions) and bt.is_valid_solution(raw, res),
+    )
+
+
+def _optimize_counted(lp: str, seed: int, **params):
+    """optimize on ``lp`` with ``params`` set, kernel A's counter set to
+    0 just before and read just after; (summary, launches, replica-sweeps
+    per second of the run's last chunk report)."""
+    import torch
+
+    import baryonyx_torch as bt
+    from baryonyx_torch.ops import psweep as pw
+
+    ctx = bt.make_context(3)
+    ctx.parameters.seed = seed
+    for k, v in params.items():
+        setattr(ctx.parameters, k, v)
+    last = {}
+    ctx.register(update=lambda rem, val, loop, elapsed, rst: last.update(
+        loop=loop, elapsed=elapsed))
+    raw = bt.make_problem(ctx, io.StringIO(lp))
+    pw.psweep_kernel.launches = 0
+    res = bt.optimize(ctx, raw)
+    torch.cuda.synchronize()
+    launches = pw.psweep_kernel.launches
+    rate = res.replicas * last["loop"] / last["elapsed"] if last else 0.0
+    return _summary(res, raw), launches, rate
+
+
+def _one_rank_group(lp: str, seed: int, limit: int, chunk: int):
+    """Phase 17, in a one-rank NCCL group: optimize through the group's
+    path, then, the group left, through the plain path; where the two
+    differ, the plain path once more (is it deterministic at all?)."""
+    from baryonyx_torch.core.params import ConstraintOrder
+    from baryonyx_torch.parallel import distributed
+
+    kw = dict(limit=limit, time_limit=0.0, chunk_size=chunk,
+              order=ConstraintOrder.cycle)
+    grouped = _optimize_counted(lp, seed, **kw)
+    distributed.shutdown()
+    plain = _optimize_counted(lp, seed, **kw)
+    again = None if plain[0] == grouped[0] else _optimize_counted(lp, seed, **kw)
+    return grouped, plain, again
+
+
+def _two_ranks(lp: str, seed: int, time_limit: float):
+    """Phase 18, one of two gloo ranks on one card: optimize with 1,024
+    replicas per rank, watching the first top-K exchange."""
+    from baryonyx_torch.parallel import distributed
+    from baryonyx_torch.solver import optimize as bopt
+    from spawn_ranks import watch_first_exchange
+
+    real = bopt.exchange_top_k
+    first = watch_first_exchange()
+    try:
+        out = _optimize_counted(lp, seed, time_limit=time_limit,
+                                thread=2 * 1024, block_size=4)
+    finally:
+        bopt.exchange_top_k = real
+    return out, first, distributed.rank()
+
+
+def _row_route(lp: str, seed: int, time_limit: float, sweeps: int, R: int,
+               tol: float):
+    """Phase 19, one of two gloo ranks on one card: optimize past a tiny
+    device budget (the row route), then ``sweeps`` row-sharded sweeps of
+    this rank's shard on the card and on the CPU from the same state and
+    the same injected tie noise."""
+    import os
+    import time as _time
+
+    import numpy as np
+    import torch
+
+    import baryonyx_torch as bt
+    from baryonyx_torch.ops.sweep import SweepNoise
+    from baryonyx_torch.parallel.mesh import make_mesh
+    from baryonyx_torch.parallel.rowshard import (
+        compile_row_shards,
+        shard_of,
+        sweep_row_sharded,
+    )
+    from baryonyx_torch.preprocess import unpreprocess
+    from baryonyx_torch.preprocess.merge import make_merged_constraints
+
+    os.environ["BARYONYX_HBM_BUDGET"] = "5000"
+    t = _time.monotonic()
+    summary, launches, _ = _optimize_counted(lp, seed, time_limit=time_limit)
+    wall = _time.monotonic() - t
+    del os.environ["BARYONYX_HBM_BUDGET"]
+
+    mesh = make_mesh()
+    ctx = bt.make_context(0)
+    pb = bt.parse_lp(lp)
+    csts = make_merged_constraints(ctx, unpreprocess(ctx, pb))
+    n = len(pb.vars.names)
+    cp_cpu = shard_of(compile_row_shards(csts, n, mesh.size, device="cpu"),
+                      mesh.rank)
+    B = 8
+    gen = torch.Generator().manual_seed(seed * 1000 + mesh.rank)
+    # from x = 0 every cover row is violated: the first sweep walks them all
+    x0 = torch.zeros((cp_cpu.n, R), dtype=torch.int32)
+    cost = torch.as_tensor(
+        (1.0 + np.arange(cp_cpu.n) + 0.01 * ((np.arange(cp_cpu.n) * 37) % 61))
+        / (cp_cpu.n + 1.0), dtype=torch.float32)
+    kappa = torch.full((R,), 0.15)
+    noise = torch.rand((sweeps, -(-cp_cpu.m // B), B, cp_cpu.Kr, R), generator=gen)
+    out = {}
+    for where in ("cpu", "cuda"):
+        dev = torch.device(where, 0) if where == "cuda" else torch.device("cpu")
+        cp = cp_cpu.to(dev)
+        x = x0.to(dev)
+        P = torch.zeros((cp.m, cp.Kr, R), device=dev)
+        pi = torch.zeros((cp.m, R), device=dev)
+        for it in range(sweeps):
+            x, P, pi, rem = sweep_row_sharded(
+                cp, x, P, pi, cost.to(dev), kappa.to(dev), 0.01, 0.5, None,
+                mesh=mesh, block_size=B, noise=SweepNoise(noise[it].to(dev)),
+            )
+        out[where] = [v.cpu() for v in (x, P, pi, rem)]
+    a, b = out["cpu"], out["cuda"]
+    errs = {k: float((u - v).abs().max()) for k, u, v in zip(("P", "pi"), a[1:3], b[1:3])}
+    close = all(torch.allclose(v, u, rtol=tol, atol=tol) for u, v in zip(a[1:3], b[1:3]))
+    moved = float((a[1] != 0).any(dim=1).float().mean())
+    return dict(
+        optimize=summary, launches=launches, wall=wall, rank=mesh.rank,
+        x_mismatches=int((a[0] != b[0]).sum()),
+        rem_mismatches=int((a[3] != b[3]).sum()), errs=errs, close=close,
+        moved=moved, shard=(cp_cpu.m, cp_cpu.Kr, cp_cpu.n),
+    )
 
 
 def main() -> int:
@@ -587,18 +758,23 @@ def main() -> int:
                  f"on {mis} of {got.numel()} bits")
         return got
 
-    def dp_bound(cp, B, R):
-        """Least time of one DP call of B rows and R replicas: the bytes it
-        needs (r read, the chosen set written, the row tables and the
-        slot mask) over the memory rate, or its operations over the
+    def dp_bound(cp, rows, R):
+        """Least time of one DP call over the block ``rows`` and R
+        replicas, counting only the rows the block sends to the DP
+        (``cp.dp_row``; the kernel leaves the others alone): the bytes it
+        needs (r, the row tables and the slot mask of the DP rows read,
+        the chosen set written) over the memory rate, or its operations over the
         float32 rate: per (row, replica) the table's set-up 1 per w; per
         slot and w the shift test, the add, the compare and two selects
         5; the argmin over w 4 per w (the range test 2, the compare and
         the select); the read-out 2 per slot. The table itself stays on
         chip in an ideal kernel and is not counted."""
-        W, Kr = cp.Wdp, cp.Kr
-        nbytes = 5 * B * Kr * R + 5 * B * Kr + 16 * B
-        ops = B * R * (W * (1 + 5 * Kr + 4) + 2 * Kr)
+        W, Kr, B = cp.Wdp, cp.Kr, rows.numel()
+        n_dp = int(cp.dp_row[rows.long()].sum())
+        # the chosen set [B, Kr, R] is written for every row of the block
+        # (all 0 for a row that is not a DP row) and the row list read
+        nbytes = B * Kr * R + 5 * B + 4 * n_dp * Kr * R + 5 * n_dp * Kr + 12 * n_dp
+        ops = n_dp * R * (W * (1 + 5 * Kr + 4) + 2 * Kr)
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
         t_o = ops / F32_OPS_PER_S * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -640,7 +816,7 @@ def main() -> int:
                     first = dp_args
         print(f"[{name}] DP kernel bit-exact on {n_blocks} blocks x 2 "
               f"objectives; chosen share {float(got.float().mean()):.3f}")
-        b_ms, b_by = dp_bound(cp, B, DP_R)
+        b_ms, b_by = dp_bound(cp, first[1], DP_R)
         rec = dict(instance=name, inputs="random", R=DP_R, B=B, W=cp.Wdp,
                    Kr=cp.Kr, plan=dplan._asdict(), bound_ms=b_ms,
                    bound_by=b_by, **dp_timed(first, 20))
@@ -685,7 +861,7 @@ def main() -> int:
         dp_args = cloned(st)[0]
         got = dp_check(f"zknap200x1000 captured {i}", dp_args)
         B, _, R = dp_args[2].shape
-        b_ms, b_by = dp_bound(zcp, B, R)
+        b_ms, b_by = dp_bound(zcp, dp_args[1], R)
         recs.append(dict(bound_ms=b_ms, bound_by=b_by, **dp_timed(dp_args, 50)))
         dp_rows_in = int(zcp.dp_row[dp_args[1].long()].sum())
         print(f"[zknap200x1000 captured {i}] {dp_rows_in} DP rows of {B}, "
@@ -721,7 +897,7 @@ def main() -> int:
                 dp_check(f"{name} R=1 block {blk}", dp_args)
                 if blk == 0 and minimize:
                     first = dp_args
-        b_ms, b_by = dp_bound(cp, B, 1)
+        b_ms, b_by = dp_bound(cp, first[1], 1)
         rec = dict(instance=name, inputs="random", R=1, B=B, W=cp.Wdp,
                    Kr=cp.Kr, plan=dplan._asdict(), bound_ms=b_ms,
                    bound_by=b_by, **dp_timed(first, 50))
@@ -1053,7 +1229,6 @@ def main() -> int:
     # ---- phase 15: kernel A at per-replica theta and delta
     if not manual_states:
         fail("--auto:manual: no sweep input of its first chunk was kept")
-    hp_x_mis = 0
     thetas_seen = 1
     for i, st in enumerate(manual_states):
         delta_v, theta_v = st[0][8], st[0][9]
@@ -1064,21 +1239,21 @@ def main() -> int:
             fail("--auto:manual: a kept sweep input has no per-replica "
                  "theta and delta")
         thetas_seen = max(thetas_seen, theta_v.unique().numel())
-        a = pw.psweep_reference(*cloned(st)[0], **cloned(st)[1])
-        b = pw.psweep(*cloned(st)[0], **cloned(st)[1])
-        max_err = max(max_err, check(f"per-replica theta/delta state {i}", a, b))
-        hp_x_mis += compare(a, b)[0]
         print(f"[per-replica theta/delta state {i}] R {theta_v.numel()}: "
               f"{theta_v.unique().numel()} thetas in "
               f"[{float(theta_v.min()):.3f}, {float(theta_v.max()):.3f}], "
-              f"{delta_v.unique().numel()} deltas; x bit for bit")
-        del a, b
+              f"{delta_v.unique().numel()} deltas")
     if thetas_seen < 2:
         fail("--auto:manual: no kept sweep input has more than one theta")
-    per_replica_rec = dict(instance="scp200x1000, manual grid's first chunks",
-                           R=int(manual_states[0][0][9].numel()),
-                           states=len(manual_states), x_mismatches=hp_x_mis)
-    mismatches += hp_x_mis
+    # x bit for bit, P, pi and S within TOL, then timed as phase 3 times
+    mismatches_before = mismatches
+    per_replica_rec = kernel_at_states(
+        "scp200x1000 per-replica theta/delta", manual_states, 20)
+    per_replica_rec.update(
+        instance="scp200x1000, manual grid's first chunks",
+        x_mismatches=mismatches - mismatches_before,
+    )
+    per_instance.append(per_replica_rec)
     del manual_states
 
     # ---- phase 16: population checkpoints
@@ -1113,7 +1288,103 @@ def main() -> int:
     if ckpt_runs[1]["objective"] > ckpt_runs[0]["objective"]:
         fail(f"the resumed run is worse: {ckpt_runs}")
 
-    # ---- phase 17: the kernels line, then the result line
+    # ---- phases 17-19: the process-group paths, each rank a fresh process
+    # (the spawned ranks inherit this path)
+    sys.path.insert(0, str(repo / "tests"))
+    from spawn_ranks import exchange_kept, spawn
+
+    t_parallel = time.monotonic()
+    torch.cuda.empty_cache()
+    scp = instances["scp200x1000"]
+
+    # phase 17: a one-rank NCCL group against no group, bit for bit
+    t = time.monotonic()
+    (grouped, plain, plain2), = spawn(
+        _one_rank_group, 1, (scp, args.seed, GROUP_SWEEPS, GROUP_CHUNK),
+        device="cuda:0", backend="nccl", timeout_s=RANKS_TIMEOUT_S, threads=0)
+    g_sum, g_launches, _ = grouped
+    print(f"[optimize scp200x1000, 1-rank NCCL group] status {g_sum['status']} "
+          f"objective {g_sum['value']} sweeps {g_sum['loop']} R "
+          f"{g_sum['replicas']} B {g_sum['block_size']} annoying variable "
+          f"{g_sum['annoying_variable']} kernel A launches {g_launches}; "
+          f"without the group: objective {plain[0]['value']}, launches "
+          f"{plain[1]}; same Result bit for bit: {g_sum == plain[0]}; "
+          f"{time.monotonic() - t:.1f} s")
+    if g_sum != plain[0]:
+        fail(f"a one-rank group's Result differs from the plain path's (the "
+             f"plain path against itself: {plain[0] == plain2[0]})")
+    if not g_sum["valid"] or g_sum["status"] != "success":
+        fail(f"the one-rank group's result: {g_sum['status']}, valid {g_sum['valid']}")
+    if g_launches != GROUP_SWEEPS or g_sum["loop"] != GROUP_SWEEPS:
+        fail(f"1-rank group: {g_launches} launches, {g_sum['loop']} sweeps")
+
+    # phase 18: two gloo ranks on the one card
+    t = time.monotonic()
+    ranks = spawn(_two_ranks, 2, (scp, args.seed, TWO_RANKS_TIME_LIMIT_S),
+                  device="cuda:0", backend="gloo", timeout_s=RANKS_TIMEOUT_S,
+                  threads=0)
+    (s0, l0, rate0), f0, _ = ranks[0]
+    (s1, l1, rate1), f1, _ = ranks[1]
+    holds = (exchange_kept(f1["before"][0], f0),
+             exchange_kept(f0["before"][0], f1))
+    print(f"[optimize scp200x1000, 2 gloo ranks on one card] status "
+          f"{s0['status']} objective {s0['value']} sweeps {s0['loop']} R "
+          f"{s0['replicas']} ({s0['replicas'] // 2} per rank) B "
+          f"{s0['block_size']} valid {s0['valid']}; kernel A launches per rank "
+          f"{[l0, l1]}; replica-sweeps/s over both ranks {rate0:.1f} (one "
+          f"process, phase 2: {rate:.1f}); the first exchange kept each "
+          f"rank's best in the other's population: {holds}; same Result on "
+          f"both ranks "
+          f"{s0 == s1}; {time.monotonic() - t:.1f} s")
+    if s0 != s1:
+        fail("the two ranks returned different Results")
+    if not s0["valid"] or s0["status"] != "success":
+        fail(f"2 ranks: {s0['status']}, valid {s0['valid']}")
+    if not all(holds):
+        fail("the first exchange lost a rank's best without a later "
+             "candidate taking its victim slot")
+    if min(l0, l1) <= 0 or l0 != s0["loop"] or l1 != s0["loop"]:
+        fail(f"2 ranks: launches {[l0, l1]} vs sweeps {s0['loop']}")
+    two_rec = dict(objective=s0["value"], sweeps=s0["loop"], R=s0["replicas"],
+                   B=s0["block_size"], launches_per_rank=[l0, l1],
+                   replica_sweeps_per_s=rate0, one_process_replica_sweeps_per_s=rate)
+
+    # phase 19: the row route, two gloo ranks on the card
+    t = time.monotonic()
+    rows = spawn(_row_route, 2, (scp, args.seed, ROW_TIME_LIMIT_S, SWEEPS,
+                                 SWEEP_R, SWEEP_TOL),
+                 device="cuda:0", backend="gloo", timeout_s=RANKS_TIMEOUT_S,
+                 threads=0)
+    r0 = rows[0]["optimize"]
+    row_rate = r0["loop"] / ROW_TIME_LIMIT_S
+    print(f"[optimize scp200x1000, row route, 2 gloo ranks] method "
+          f"{r0['method']} status {r0['status']} objective {r0['value']} "
+          f"sweeps {r0['loop']} ({row_rate:.1f} sweeps/s, 16 replicas) valid "
+          f"{r0['valid']} kernel A launches {[r['launches'] for r in rows]}; "
+          f"wall {rows[0]['wall']:.2f} s")
+    if not r0["method"].endswith("+rowshard"):
+        fail(f"the row route was not taken: method {r0['method']}")
+    if r0 != rows[1]["optimize"]:
+        fail("the row route's two ranks returned different Results")
+    if not r0["valid"] or r0["status"] != "success":
+        fail(f"row route: {r0['status']}, valid {r0['valid']}")
+    for r in rows:
+        print(f"[row-sharded sweep, rank {r['rank']}, shard m={r['shard'][0]} "
+              f"Kr={r['shard'][1]} n={r['shard'][2]}, R={SWEEP_R}] card against "
+              f"CPU after {SWEEPS} sweeps: x mismatches {r['x_mismatches']}, "
+              f"remaining mismatches {r['rem_mismatches']}, max|err| "
+              f"{r['errs']}, rows with a moved P {r['moved']:.4f}")
+        if r["x_mismatches"] or r["rem_mismatches"] or not r["close"]:
+            fail(f"rank {r['rank']}: the row-sharded sweep on the card differs "
+                 f"from the CPU's")
+        if r["moved"] < 0.5:
+            fail(f"rank {r['rank']}: the row-sharded sweep moved too little")
+    print(f"[phases 17-19] {time.monotonic() - t_parallel:.1f} s")
+    row_rec = dict(method=r0["method"], objective=r0["value"], sweeps=r0["loop"],
+                   sweeps_per_s=row_rate,
+                   sweep_max_abs_err=[r["errs"] for r in rows])
+
+    # ---- phase 20: the kernels line, then the result line
     main = per_instance[0]
     print(json.dumps({"kernels": [{
         "name": "psweep",
@@ -1128,7 +1399,9 @@ def main() -> int:
                              **{f"--auto:{m}": r["launches"]["psweep"]
                                 for m, r in meta_recs.items()},
                              "checkpoint write": ckpt_runs[0]["launches"]["psweep"],
-                             "checkpoint resume": ckpt_runs[1]["launches"]["psweep"]},
+                             "checkpoint resume": ckpt_runs[1]["launches"]["psweep"],
+                             "optimize scp200x1000, 1-rank group": g_launches,
+                             "optimize scp200x1000, 2 ranks": l0 + l1},
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": main["ms"],
@@ -1160,7 +1433,7 @@ def main() -> int:
         "solve": z_solve_rec,
     }], "general_sweep": sweep_recs, "solve": solve_rec,
         "optimize_general_sweep": fallback_rec, "meta": meta_recs,
-        "checkpoint": ckpt_runs}))
+        "checkpoint": ckpt_runs, "two_ranks": two_rec, "row_route": row_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -377,3 +377,15 @@ def test_kernel_and_plain_version_agree_at_a_nonfinite_P(cuda, variant):
     assert torch.equal(a[1], b[1])
     assert torch.isinf(b[1][k_row, 0, 5]) and torch.isinf(b[1][k_all, 0, 7])
     assert (b[1][k_row, 0, 6] != P0[k_row, 0, 6]).item()  # its neighbor moved
+
+
+@pytest.mark.gpu
+def test_device_memory_stats_reads_every_card(cuda):
+    from baryonyx_torch.memory import device_memory_stats
+
+    held = torch.empty(1 << 20, device=cuda)
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    mine = stats[f"cuda:{cuda.index or 0}"]
+    assert mine["bytes_in_use"] >= held.numel() * 4
+    assert mine["bytes_limit"] > mine["bytes_in_use"]

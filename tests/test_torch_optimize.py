@@ -11,6 +11,8 @@
 - The same on two Z (integer-factor) instances, through the Z sweep.
 - Without CUDA and without an explicit device the entry points raise;
   what the port does not cover is refused, never rerouted.
+- A state over the device budget on one process warns, as the JAX
+  package does, and proceeds.
 - The random solver skips the exact enumeration of small instances, as
   in the JAX package.
 - What the fused sweep does not take (float64, the random solver, an
@@ -365,11 +367,19 @@ def test_memory_estimate_counts_the_general_sweep():
     assert estimated_peak_bytes(cp, 512, itemsize=8, general_sweep=True) > general
 
 
-def test_state_over_the_device_budget_is_refused(monkeypatch):
-    from baryonyx_torch.solver import optimize as topt
-
-    monkeypatch.setattr(topt, "device_budget_bytes", lambda device: 1)
-    ctx = bt.make_context(0)
-    ctx.parameters.limit = 10
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        bt.optimize(ctx, bt.parse_lp(LP), device="cpu")
+def test_state_over_the_device_budget_warns_and_proceeds_on_one_device(monkeypatch):
+    """Past the device budget, one process (no group to shard the rows
+    over) says so with the JAX package's warning and still solves."""
+    monkeypatch.setenv("BARYONYX_HBM_BUDGET", "1")
+    ctx = _ctx(bt)
+    warnings = []
+    ctx.warning = lambda msg, *a: warnings.append(msg.format(*a))
+    raw = bt.parse_lp(LP)
+    rt = bt.optimize(ctx, raw, device="cpu")
+    assert any(
+        "exceeds the device memory budget and row sharding does not apply"
+        in w for w in warnings
+    ), warnings
+    assert "rowshard" not in rt.method and rt.loop == 200
+    assert rt.status == bt.ResultStatus.success
+    assert bt.is_valid_solution(raw, rt)
