@@ -8,6 +8,8 @@ standard library only.
 
 - ``make_context``, ``parse_lp``, ``make_problem``, ``write_problem``: the
   LP reader and writer; ``make_result``, ``write_result``: solution files;
+  the model's types (``RawProblem``, ``Constraint``, ``FunctionElement``,
+  ``OperatorType``, ...);
 - ``solve(ctx, problem, device=None)``: one kappa-annealed run to a
   feasible solution plus the push phase;
 - ``optimize(ctx, problem, device=None)``: the evolutionary multi-start
@@ -26,7 +28,18 @@ from baryonyx_torch.core.errors import (
     ProblemDefinitionError,
     SolverError,
 )
-from baryonyx_torch.core.model import ObjectiveType, Problem, RawProblem
+from baryonyx_torch.core.model import (
+    Constraint,
+    FunctionElement,
+    ObjectiveFunction,
+    ObjectiveQuadraticTerm,
+    ObjectiveType,
+    OperatorType,
+    Problem,
+    ProblemSolverType,
+    RawProblem,
+    VariableType,
+)
 from baryonyx_torch.core.params import (
     ConstraintOrder,
     CostNormType,

@@ -17,9 +17,11 @@ host's time to enqueue them is not in the number), the plans taking turns,
 two rounds.
 
 Kernel B (csrc/dpselect.cu) on zknap200x1000 (W 88) and the wide-table
-instance (W 2048), R = 512, B = 8, random N(0, 1) reduced costs: every
-candidate plan (device_table; the shared variant at several G and T) is
-held against the plain version bit for bit, then timed the same way.
+instance (W 2048), R = 512, B = 8, random N(0, 1) reduced costs, in
+float32 and in float64 (the kernel's double instance, whose tables take
+8-byte entries): every candidate plan (device_table; the shared variant
+at several G and T that fit at that item size) is held against the plain
+version bit for bit, then timed the same way.
 
 ``--quick`` builds, prints the compiler's register report, runs every plan
 once against the plain version, and times nothing. Prints one line per
@@ -177,14 +179,14 @@ def tune_sweep(name, lp, dev, seed, quick, reps):
     return out
 
 
-def dp_plans(cp, R, B):
-    default = zs.dp_launch_plan(cp.Wdp, cp.Kr, R, B)
+def dp_plans(cp, R, B, itemsize):
+    default = zs.dp_launch_plan(cp.Wdp, cp.Kr, R, B, itemsize)
     plans = [default, zs.DEVICE_TABLE]
-    for G in (32, 16, 8, 4):
+    for G in (32, 16, 8, 4, 2):
         for T in (1024 // G, 512 // G, 256 // G, 128 // G):
             if T * G % 32 == 0 and T <= cp.Wdp + 32 // G:
                 try:
-                    plans.append(zs.dp_plan(cp.Wdp, cp.Kr, G, T))
+                    plans.append(zs.dp_plan(cp.Wdp, cp.Kr, G, T, itemsize))
                 except ValueError:
                     pass
     return list(dict.fromkeys(plans))
@@ -199,14 +201,19 @@ def tune_dp(name, lp, dev, seed, quick, reps, R=512):
     mixed = torch.arange(B, dtype=torch.int32, device=dev)
     dp_only = torch.nonzero(cp.dp_row).flatten()[:B].to(torch.int32)
     out = []
-    for label, rows_c in (("dp_rows", dp_only), ("mixed_rows", mixed)):
-        r = torch.randn((B, cp.Kr, R), generator=gen, device=dev)
+    for dtype, label, rows_c in (
+        (torch.float32, "dp_rows", dp_only), (torch.float32, "mixed_rows", mixed),
+        (torch.float64, "dp_rows", dp_only),
+    ):
+        r = torch.randn((B, cp.Kr, R), generator=gen, device=dev, dtype=dtype)
+        itemsize = r.element_size()
+        label = f"{label} {str(dtype).split('.')[-1]}"
         mask = cp.row_mask[rows_c.long()].contiguous()
         n_dp = int(cp.dp_row[rows_c.long()].sum())
         good = []
         for minimize in (True, False):
             want = zs.dp_select_reference(cp, rows_c, r, mask, minimize)
-            for plan in dp_plans(cp, R, B):
+            for plan in dp_plans(cp, R, B, itemsize):
                 got = zs.dp_select_kernel(cp, rows_c, r, mask, minimize, plan)
                 torch.cuda.synchronize()
                 mis = int((got != want).sum())
@@ -230,6 +237,7 @@ def tune_dp(name, lp, dev, seed, quick, reps, R=512):
             print(f"[{name} {label}] {min(ms[plan]):9.4f} ms  {plan}", flush=True)
             out.append(dict(kernel="dpselect", instance=name, rows=label,
                             dp_rows=n_dp, R=R, B=B, Kr=cp.Kr, W=cp.Wdp,
+                            itemsize=itemsize,
                             plan=plan._asdict(), ms=ms[plan]))
     return out
 

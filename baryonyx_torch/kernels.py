@@ -93,20 +93,23 @@ def build_log(name: str) -> str:
 
 def resource_lines(log: str) -> List[str]:
     """One line per compiled kernel from a ``-Xptxas -v`` log: its name
-    (template arguments as <0,1,..>), registers, shared and constant
-    memory, stack frame and spills."""
+    (template arguments as <0,1,..> or <float>, <double>), registers,
+    shared and constant memory, stack frame and spills."""
     out = []
     name = spill = ""
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-            known = re.search(r"([a-z]+_kernel_[a-z_]+)(?:I((?:L[bi]\d+E)+)E)?", name)
+            known = re.search(
+                r"([a-z]+_kernel_[a-z_]+)(?:I((?:L[bi]\d+E|[fd])+)E)?", name)
             if known:
                 name = known.group(1)
                 if known.group(2):
-                    flags = re.findall(r"L[bi](\d+)E", known.group(2))
-                    name += "<" + ",".join(flags) + ">"
+                    args = re.findall(r"L[bi](\d+)E|([fd])", known.group(2))
+                    name += "<" + ",".join(
+                        v or {"f": "float", "d": "double"}[t] for v, t in args
+                    ) + ">"
             spill = ""
         elif "spill" in line:
             spill = line.strip()

@@ -74,17 +74,29 @@ def violated_mask(cp: CompiledProblem, x: torch.Tensor) -> torch.Tensor:
     return (act < bmin) | (act > bmax)
 
 
+def add_rows_(S: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """S[idx[i]] += vals[i] for every i, in the same order on every run.
+    ``index_add_`` does that on the CPU; on CUDA it adds with atomics,
+    whose order, and so the last bits of a sum, change from run to run,
+    and a solve run from one seed could then find a feasible solution or
+    not. There the sort-based ``index_put_(accumulate=True)`` adds instead:
+    a seed gives one result, as in the JAX package."""
+    if S.device.type == "cuda":
+        return S.index_put_((idx,), vals, accumulate=True)
+    return S.index_add_(0, idx, vals)
+
+
 def column_sums(
     cp: CompiledProblem, P: torch.Tensor, pi: torch.Tensor
 ) -> torch.Tensor:
-    """Exact S[j] = sum_k a_kj (pi_k + P[k, s(k,j)]) by one index_add_
-    over all elements; padded slots land in a dropped row n.
-    P: [m, Kr, R], pi: [m, R] → [n, R]."""
+    """Exact S[j] = sum_k a_kj (pi_k + P[k, s(k,j)]) by one scatter-add
+    (``add_rows_``) over all elements; padded slots land in a dropped row
+    n. P: [m, Kr, R], pi: [m, R] → [n, R]."""
     R = pi.shape[-1]
     contrib = (cp.row_factor[:, :, None] * (pi[:, None, :] + P)).reshape(-1, R)
     idx = torch.where(cp.row_mask, cp.row_vars, cp.n).reshape(-1).long()
     S = torch.zeros((cp.n + 1, R), dtype=P.dtype, device=P.device)
-    S.index_add_(0, idx, contrib)
+    add_rows_(S, idx, contrib)
     return S[: cp.n]
 
 
@@ -203,8 +215,8 @@ def sweep(
     them across sweeps (P and pi change only in here) and pass
     ``S_fresh=False`` now and then to force the exact recompute that
     bounds the drift. P and pi are updated in place; x and S come back as
-    new tensors. The S updates go through ``index_add_``, which adds with
-    atomics on CUDA: there S differs in the last bits from run to run.
+    new tensors. The S updates go through ``add_rows_``, which adds in the
+    same order on every run.
 
     The random numbers (tie noise; the random solver's costs) are drawn
     from ``gen`` block by block, or taken from ``noise``."""
@@ -360,7 +372,7 @@ def sweep(
         # that is not scheduled
         sidx = torch.where(mask & row_ok[:, None], vars0, n).reshape(-1).long()
         upd = torch.where(vmask, a3 * (dpi[:, None, :] + new_P - P_rows), 0.0)
-        S.index_add_(0, sidx, upd.reshape(-1, R))
+        add_rows_(S, sidx, upd.reshape(-1, R))
 
         # priority scatter: the later row of the block wins conflicting x
         # writes

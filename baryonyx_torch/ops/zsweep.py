@@ -25,8 +25,9 @@ across blocks), replicas on the trailing axis R, as in ops/psweep.py.
 
 ``dp_select`` sends CUDA tensors to the kernel (or raises) and CPU tensors
 to ``dp_select_reference``, the plain version with the kernel's
-arithmetic. Nothing falls back. ``dp_launch_plan`` says how the kernel is
-launched for a shape.
+arithmetic, in float32 or float64 (the kernel's double instance). Nothing
+falls back. ``dp_launch_plan`` says how the kernel is launched for a shape
+and score type.
 """
 
 from __future__ import annotations
@@ -38,9 +39,24 @@ import torch
 
 from baryonyx_torch.ops.layout import CompiledProblem
 from baryonyx_torch.ops.psweep import SMEM_MAX, SMEM_STATIC, THREADS_MAX
-from baryonyx_torch.ops.sweep import block_costs, violated_mask, write_rows
+from baryonyx_torch.ops.sweep import (
+    add_rows_,
+    block_costs,
+    violated_mask,
+    write_rows,
+)
 
-DP_BIG = 1e30  # the DP's finite "infinity": every sum it enters stays finite
+DP_BIG = 1e30  # the float32 DP's finite "infinity": every sum it enters stays finite
+
+
+def dp_big(dtype: torch.dtype) -> float:
+    """The DP's "infinity" for a score type: DP_BIG in float32, as the JAX
+    package's Pallas kernel (its float32 route); +inf in float64, as the
+    JAX package's ``_dp_select`` (its float64 route). A finite 1e30 in
+    float64 is not out of reach: its ulp is about 1.4e14, so once reduced
+    costs pass about 3e29 (a maximizing Z run's duals grow about 20x per
+    sweep) an unreachable activity takes a finite score and can win."""
+    return float("inf") if dtype == torch.float64 else DP_BIG
 
 
 def _vec(v, device, dtype) -> torch.Tensor:
@@ -57,7 +73,7 @@ def _vec(v, device, dtype) -> torch.Tensor:
 def dp_select_reference(
     cp: CompiledProblem,
     rows_c: torch.Tensor,  # int32[B]
-    r: torch.Tensor,  # f32[B, Kr, R] reduced costs
+    r: torch.Tensor,  # f32 or f64 [B, Kr, R] reduced costs
     mask: torch.Tensor,  # bool[B, Kr]
     minimize: bool,
 ) -> torch.Tensor:
@@ -67,18 +83,20 @@ def dp_select_reference(
     W = cp.Wdp, offset dp_lo). f[w] is the best score at activity w; the
     chosen set rides along as 32-bit mask words (bit s in word s // 32).
 
-    Per slot s: cand = f[w - a_s] + rq_s (DP_BIG where w - a_s leaves the
-    table), taken on strict cand < f; masked slots have rq = DP_BIG. The
-    answer is the lowest w in [wlo, whi] with the least f. The same single
-    add and strict compare as the kernel. A row that is no DP row gets an
-    all-zero set (the sweep discards it). Returns bool[B, Kr, R]."""
+    Per slot s: cand = f[w - a_s] + rq_s (big = ``dp_big(r.dtype)`` where
+    w - a_s leaves the table), taken on strict cand < f; masked slots have
+    rq = big. The answer is the lowest w in [wlo, whi] with the least f.
+    The same single add and strict compare as the kernel, in r's type. A
+    row that is no DP row gets an all-zero set (the sweep discards it).
+    Returns bool[B, Kr, R]."""
     B, Kr, R = r.shape
     W = cp.Wdp
     nw = (Kr + 31) // 32
     dev = r.device
+    big = dp_big(r.dtype)
     rows = rows_c.long()
     rq = r if minimize else -r
-    rq = torch.where(mask[:, :, None], rq, DP_BIG)
+    rq = torch.where(mask[:, :, None], rq, big)
 
     a = cp.dp_fac[rows].long()  # [B, Kr] (0 on non-DP rows: harmless)
     lo = cp.dp_lo[rows].long()  # [B]
@@ -88,14 +106,14 @@ def dp_select_reference(
     f = torch.where(
         (wi[None, :] == -lo[:, None])[:, :, None],
         torch.zeros((), dtype=r.dtype, device=dev),
-        torch.full((), DP_BIG, dtype=r.dtype, device=dev),
+        torch.full((), big, dtype=r.dtype, device=dev),
     ).expand(B, W, R).contiguous()
     msk = torch.zeros((nw, B, W, R), dtype=torch.int64, device=dev)
     for s in range(Kr):
         src = wi[None, :] - a[:, s, None]  # [B, W]
         ok = ((src >= 0) & (src < W))[:, :, None]
         idx = src.clamp(0, W - 1)[:, :, None].expand(B, W, R)
-        fsh = torch.where(ok, f.gather(1, idx), DP_BIG)
+        fsh = torch.where(ok, f.gather(1, idx), big)
         cand = fsh + rq[:, s, None, :]
         take = cand < f
         word, bit = divmod(s, 32)
@@ -109,7 +127,7 @@ def dp_select_reference(
         f = torch.where(take, cand, f)
 
     in_range = (wi[None, :] >= wlo[:, None]) & (wi[None, :] <= whi[:, None])
-    f = torch.where(in_range[:, :, None], f, DP_BIG)
+    f = torch.where(in_range[:, :, None], f, big)
     fmin = f.amin(dim=1, keepdim=True)
     wbest = torch.where(f == fmin, wi[None, :, None], W).amin(dim=1)  # [B, R]
     words = msk.gather(2, wbest[None, :, None, :].expand(nw, B, 1, R))[:, :, 0]
@@ -145,33 +163,40 @@ DP_ENTRIES = 3  # table entries per thread and slot the plan aims at
 DP_LANES_MAX = 128  # lanes over w: more warps make the slots' barriers dearer
 
 
-def _dp_smem_bytes(W: int, Kr: int, G: int, T: int) -> int:
-    """Dynamic shared memory of the "shared" variant: two f tables and the
-    take words [W][G], the staged reduced costs [Kr][G], the row's
-    factors and live flags [Kr], the argmin's stage and the chosen words."""
+def _dp_smem_bytes(W: int, Kr: int, G: int, T: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of the "shared" variant at scores of
+    ``itemsize`` bytes (4: float32, 8: float64): two f tables [W][G], the
+    staged reduced costs [Kr][G] and the argmin's scores in that type; the
+    take words [W][G], the row's factors and live flags [Kr], the argmin's
+    w and the chosen words in 4 bytes."""
     nw = (Kr + 31) // 32
     nwarps = G * T // 32
-    return 4 * ((2 + nw) * W * G + Kr * G + 2 * Kr + 2 * nwarps * G + nw * G)
+    return itemsize * (2 * W * G + Kr * G + nwarps * G) + 4 * (
+        nw * W * G + 2 * Kr + nwarps * G + nw * G
+    )
 
 
-def dp_plan(W: int, Kr: int, G: int, T: int) -> DPPlan:
-    """The "shared" plan with these choices; ValueError if the card or the
-    kernel cannot take it."""
+def dp_plan(W: int, Kr: int, G: int, T: int, itemsize: int = 4) -> DPPlan:
+    """The "shared" plan with these choices at scores of ``itemsize``
+    bytes; ValueError if the card or the kernel cannot take it."""
     if G < 1 or 32 % G or T < 1 or (G * T) % 32 or G * T > THREADS_MAX:
         raise ValueError(f"dpselect plan: bad G {G} or T {T}")
-    nbytes = _dp_smem_bytes(W, Kr, G, T)
+    if itemsize not in (4, 8):
+        raise ValueError(f"dpselect plan: scores of {itemsize} bytes")
+    nbytes = _dp_smem_bytes(W, Kr, G, T, itemsize)
     if nbytes + SMEM_STATIC > SMEM_MAX:
         raise ValueError(f"dpselect plan: {nbytes} bytes of shared memory")
     return DPPlan("shared", G, T, nbytes)
 
 
-def dp_launch_plan(W: int, Kr: int, R: int, B: int) -> DPPlan:
+def dp_launch_plan(W: int, Kr: int, R: int, B: int, itemsize: int = 4) -> DPPlan:
     """The plan for a DP call on a table of W entries, rows of Kr slots, R
-    replicas and B rows: the largest group of replicas (8 at most, and a
-    divisor of R) whose table fits shared memory, with a lane for every
-    DP_ENTRIES entries of the table, up to DP_LANES_MAX lanes; the
-    device_table variant when the table fits at no group size. (Measured
-    at W 88 and W 2048 with baryonyx_torch/kernel_tune.py.)"""
+    replicas, B rows and scores of ``itemsize`` bytes: the largest group
+    of replicas (8 at most, and a divisor of R) whose table fits shared
+    memory, with a lane for every DP_ENTRIES entries of the table, up to
+    DP_LANES_MAX lanes; the device_table variant when the table fits at no
+    group size. (Measured at W 88 and W 2048, both score types, with
+    baryonyx_torch/kernel_tune.py.)"""
     if W < 1 or Kr < 1 or R < 1 or B < 1:
         raise ValueError(f"dpselect plan: bad shape W {W} Kr {Kr} R {R} B {B}")
     for G in (8, 4, 2, 1):
@@ -180,8 +205,8 @@ def dp_launch_plan(W: int, Kr: int, R: int, B: int) -> DPPlan:
         step = 32 // G  # T in multiples of it makes whole warps
         want = -(-W // DP_ENTRIES)
         T = min(DP_LANES_MAX, THREADS_MAX // G, -(-want // step) * step)
-        if _dp_smem_bytes(W, Kr, G, T) + SMEM_STATIC <= SMEM_MAX:
-            return dp_plan(W, Kr, G, T)
+        if _dp_smem_bytes(W, Kr, G, T, itemsize) + SMEM_STATIC <= SMEM_MAX:
+            return dp_plan(W, Kr, G, T, itemsize)
     return DEVICE_TABLE
 
 
@@ -197,7 +222,7 @@ class CudaDPSelect:
             from baryonyx_torch.kernels import load
 
             fn = load("dpselect").dpselect_launch
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
@@ -214,7 +239,8 @@ class CudaDPSelect:
         plan: Optional[DPPlan] = None,
     ) -> torch.Tensor:
         """The selection on CUDA tensors, launched by ``plan`` (default:
-        the shape's ``dp_launch_plan``)."""
+        the shape's ``dp_launch_plan``); ``r`` float32, or float64 for the
+        kernel's double instance."""
         dev = r.device
         B, Kr, R = r.shape
         m, W = cp.m, cp.Wdp
@@ -222,9 +248,12 @@ class CudaDPSelect:
             raise ValueError("dpselect kernel: the problem has no DP rows")
         if not 1 <= B <= 65535 or R < 1:
             raise ValueError(f"dpselect kernel: bad shape {tuple(r.shape)}")
+        if r.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dpselect kernel: no instance for {r.dtype}")
+        itemsize = r.element_size()
         checks = [
             (rows_c, (B,), torch.int32),
-            (r, (B, Kr, R), torch.float32),
+            (r, (B, Kr, R), r.dtype),
             (mask, (B, Kr), torch.bool),
             (cp.dp_row, (m,), torch.bool),
             (cp.dp_fac, (m, Kr), torch.int32),
@@ -241,12 +270,12 @@ class CudaDPSelect:
             if not t.is_contiguous():
                 raise ValueError("dpselect kernel: every tensor must be contiguous")
         if plan is None:
-            plan = dp_launch_plan(W, Kr, R, B)
+            plan = dp_launch_plan(W, Kr, R, B, itemsize)
         shared = plan.variant == "shared"
         f = words = None
         if not shared:
             nw = (Kr + 31) // 32
-            f = torch.empty((B, W, R), dtype=torch.float32, device=dev)
+            f = torch.empty((B, W, R), dtype=r.dtype, device=dev)
             words = torch.empty((B, nw, W, R), dtype=torch.int32, device=dev)
         out = torch.empty((B, Kr, R), dtype=torch.bool, device=dev)
         fn = self.load()
@@ -258,7 +287,7 @@ class CudaDPSelect:
             f.data_ptr() if f is not None else None,
             words.data_ptr() if words is not None else None,
             out.data_ptr(), B, Kr, R, W, int(minimize), int(shared), plan.G,
-            plan.T, plan.smem_bytes, stream,
+            plan.T, plan.smem_bytes, itemsize, stream,
         )
         if err != 0:
             raise RuntimeError(
@@ -361,14 +390,14 @@ def _column_sums_abs_ext(
     contrib = (absa * (pi[:, None, :] + P)).reshape(-1, R)
     idx = torch.where(cp.row_mask, cp.row_vars, cp.n).reshape(-1).long()
     S = torch.zeros((cp.n + 1, R), dtype=P.dtype, device=P.device)
-    S.index_add_(0, idx, contrib)
+    add_rows_(S, idx, contrib)
     return S
 
 
 def column_sums_abs(
     cp: CompiledProblem, P: torch.Tensor, pi: torch.Tensor
 ) -> torch.Tensor:
-    """S[j] = sum_k |a_kj| (pi_k + P[k, s(k, j)]) by one index_add_ over
+    """S[j] = sum_k |a_kj| (pi_k + P[k, s(k, j)]) by one scatter-add over
     all elements; padded slots land in a dropped row n.
     P: [m, Kr, R], pi: [m, R] → [n, R]."""
     return _column_sums_abs_ext(cp, P, pi)[: cp.n]
@@ -509,7 +538,7 @@ def z_sweep(
         sidx = torch.where(mask & row_ok[:, None], vars0, n).reshape(-1).long()
         # nothing from a pair that is not scheduled, whatever its P holds
         dS = torch.where(vmask, a3 * (dpi[:, None, :] + (P2 - P_rows)), 0.0)
-        S.index_add_(0, sidx, dS.reshape(-1, R))
+        add_rows_(S, sidx, dS.reshape(-1, R))
 
         # x: the later row of the block wins (prio * 2 + bit, max-reduced)
         enc = torch.where(

@@ -383,11 +383,6 @@ def solve_compiled(
     use_random = params.solver == SolverType.random
     if cp.has_z and use_random:
         raise NotImplementedError("random solver for Z problems")
-    if cp.has_z and cp.Wdp and f64 and dev.type == "cuda":
-        raise NotImplementedError(
-            "float64 on a CUDA device for an instance whose long integer "
-            "rows go to the knapsack DP kernel, which is float32"
-        )
     cost_orig_real = common.build_cost_vector(pb, n)
     quad_fac_norm = None
     if cp.has_quad:

@@ -23,7 +23,7 @@ baryonyx_torch/csrc, then:
      set to 0 just before and read just after, and validates the solution;
      then optimize on the scpnre class for a few seconds. Both runs keep
      copies of the inputs of some of their sweeps (the main path's last
-     ones, the scpnre run's first ones);
+     ones, the scpnre run's first ones and, for phase 25, its last ones);
   3. at those main-path sweep inputs, holds the kernel against its plain
      version once more and times it (its launches captured into one CUDA
      graph, so the host's time to enqueue them is not in the number), in
@@ -120,8 +120,43 @@ baryonyx_torch/csrc, then:
      from x = 0 and the same injected tie noise: x and remaining equal,
      P and pi within phase 8's tolerances. Every rank of phases 17-19 is
      a spawned process with a join timeout (tests/spawn_ranks.py);
- 20. prints one JSON line with every kernel's numbers, then the last
-     line {"ok": true, "device": {...}}.
+ 21. holds kernel B's double instance (float64 scores; its "infinity" is
+     +inf, as the JAX package's float64 DP) against its plain version, bit
+     for bit, at random N(0, 1) reduced costs on the DP rows of both Z
+     instances (widths 88 and 2048), at R = 512 and R = 1, both
+     objectives; prints each launch plan (the float32 one beside it) and
+     fails if one takes the device_table variant; times it in turns with
+     that first design, with its bound at 8-byte scores and the float64
+     rate; then the same at the DP inputs phase 22 keeps;
+ 22. float64 on the card: baryonyx_torch.solve on zknap200x1000 (10 s),
+     then optimize on it (4 s): valid solutions, DP launches equal to the
+     blocks the sweeps processed, float64 DP inputs kept; optimize on
+     scp200x1000 in float64 (4 s) through the general sweep: valid, no
+     kernel launch;
+ 23. the equality classes at the JAX package's battery sizes, not cut
+     (scripts/bench_battery.py): optimize for 4 s each on sppus145
+     (random_set_partition_lp(145, 48, 3, (1, 1000), 30000, seed=3)),
+     tele1200 (telebus_crew_lp(1200, 20, 4, seed=2)) and nq100
+     (n_queens_lp(100); = and <= rows): a valid solution whose objective
+     equals the numpy oracle's, kernel A launched once per sweep; at the
+     kept sweep inputs kernel A is held against its plain version with
+     phase 1's tolerances and timed as phase 3 does, with its byte bound;
+ 24. +-1 rows and maximization: optimize for 4 s on
+     random_knapsack_101_lp(2000, 64, seed=5) (maximize; its rows read
+     middle ranks, so the general sweep runs): valid, objective equal to
+     the oracle's; kernel A's non-unit variant against its plain version,
+     maximizing, at R = 2048 on random_knapsack_101_lp(22, 64, seed=5),
+     the largest of that generator's instances whose selection needs no
+     sort; optimize for 4 s on zknap200x1000 turned to maximize, P left to
+     grow as in the JAX package: prints status, validity, objective, the
+     largest finite |P| and whether P went non-finite, and holds kernel B
+     against its plain version (float32) at the run's DP inputs;
+ 25. (run beside phase 3, while the states are on the card) kernel A
+     against its plain version at the scpnre run's last kept sweeps, where
+     non-finite entries of P, pi and S must agree in place;
+ 26. prints one JSON line with every kernel's numbers (kernel B's double
+     instance as a row of its own), then the last line
+     {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the last line. Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -142,6 +177,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = F32_OPS_PER_S / 2  # and float64: half the float32 rate
 SWEEPS = 3
 TIME_LIMIT_S = 4.0  # the optimize budget of the main-path run
 NRE_TIME_LIMIT_S = 4.0  # the optimize budget of the scpnre run
@@ -157,6 +193,9 @@ GROUP_CHUNK = 100  # ...in 4 chunks (the cataclysm of one process needs 7)
 TWO_RANKS_TIME_LIMIT_S = 4.0  # optimize at 2 ranks on one card
 ROW_TIME_LIMIT_S = 3.0  # optimize through the row route
 RANKS_TIMEOUT_S = 240.0  # no spawned rank outlives this
+F64_SOLVE_TIME_LIMIT_S = 10.0  # float64 solve on zknap200x1000
+F64_TIME_LIMIT_S = 4.0  # each float64 optimize run
+CLASS_TIME_LIMIT_S = 4.0  # each optimize run of phases 23 and 24
 SWEEP_R = 32  # replicas of the general sweep's card-against-CPU check
 SWEEP_TOL = 1e-5  # absolute plus relative, on P, pi and S
 DP_R = 512  # replicas of the DP parity phase (the Z path's default R)
@@ -319,6 +358,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
 
+    t_script = time.monotonic()
     repo = Path(__file__).resolve().parent
     if not (repo / "baryonyx_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout (baryonyx_torch/ missing)",
@@ -358,9 +398,13 @@ def main() -> int:
 
     import baryonyx_torch as bt
     from baryonyx_torch.generators import (
+        n_queens_lp,
+        random_knapsack_101_lp,
         random_qsap_lp,
         random_set_cover_lp,
+        random_set_partition_lp,
         random_z_multiknapsack_lp,
+        telebus_crew_lp,
     )
     from baryonyx_torch.ops import psweep as pw
     from baryonyx_torch.ops import zsweep as zs
@@ -412,7 +456,8 @@ def main() -> int:
             fail(f"{label}: kernel P/pi/S outside tolerance: {errs}")
         return max(errs.values())
 
-    def run_chain(fn, cp, R, B, cost, push, delta=0.01, theta=0.5):
+    def run_chain(fn, cp, R, B, cost, push, delta=0.01, theta=0.5,
+                  minimize=True):
         """SWEEPS sweeps from x = 0; push lanes schedule every row, the
         others their violated rows; the order puts the scheduled rows
         first, as the optimizer's step does."""
@@ -432,7 +477,7 @@ def main() -> int:
                 cp, x, P, pi, cost, sched, order.to(torch.int32),
                 torch.full((R,), 0.15, device=dev), delta, theta, seed,
                 torch.zeros(R, device=dev), n_rows=any_row.sum(),
-                minimize=True, block_size=B, S=S, S_fresh=it != 0,
+                minimize=minimize, block_size=B, S=S, S_fresh=it != 0,
             )
             sched = viol | push
         torch.cuda.synchronize()
@@ -443,14 +488,17 @@ def main() -> int:
     class Capture:
         """Wraps a kernel's dispatcher for an optimize run: keeps copies of
         the inputs of every ``every``-th call, the last ``keep`` of them
-        or, with ``first``, the first ``keep``; notes when the first call
+        or, with ``first``, the first ``keep`` (and then, with ``late``,
+        the last ``late`` of them apart); notes when the first call
         came."""
 
-        def __init__(self, real, every: int, keep: int, first: bool = False):
+        def __init__(self, real, every: int, keep: int, first: bool = False,
+                     late: int = 0):
             self.every = every
             self.keep = keep
             self.first = first
             self.states = collections.deque(maxlen=keep)
+            self.late = collections.deque(maxlen=late)
             self.calls = 0
             self.real = real
             self.t_first = None
@@ -459,9 +507,11 @@ def main() -> int:
             if self.t_first is None:
                 self.t_first = time.monotonic()
             self.calls += 1
-            full = self.first and len(self.states) == self.keep
-            if self.calls % self.every == 0 and not full:
-                self.states.append(cloned((a, kw)))
+            if self.calls % self.every == 0:
+                if not (self.first and len(self.states) == self.keep):
+                    self.states.append(cloned((a, kw)))
+                elif self.late.maxlen:
+                    self.late.append(cloned((a, kw)))
             return self.real(*a, **kw)
 
     def cloned(state):
@@ -470,16 +520,20 @@ def main() -> int:
         return tuple(c(v) for v in a), {k: c(v) for k, v in kw.items()}
 
     def run_optimize(lp, limit: float, every: int, keep: int,
-                     module=pw, attr="psweep", first=False, timing=None):
-        """optimize on ``lp`` (LP text, or a Path to an LP file) for
-        ``limit`` s, with ``module.attr`` wrapped by a Capture; every
-        launch counter is set to 0 just before and read just after.
-        Returns (raw, result, launches by kernel, replica-sweeps/s,
-        captured inputs); ``timing`` gets the seconds of the parse and
-        of the set-up before the first sweep."""
+                     module=pw, attr="psweep", first=False, timing=None,
+                     late=0, entry=None, params=None):
+        """optimize (or ``entry``: bt.solve) on ``lp`` (LP text, or a Path
+        to an LP file) for ``limit`` s, with ``params`` set and
+        ``module.attr`` wrapped by a Capture; every launch counter is set
+        to 0 just before and read just after. Returns (raw, result,
+        launches by kernel, replica-sweeps/s, captured inputs; with
+        ``late``, the pair (first, last) of them); ``timing`` gets the
+        seconds of the parse and of the set-up before the first sweep."""
         ctx = bt.make_context(4)
         ctx.parameters.seed = args.seed
         ctx.parameters.time_limit = limit
+        for k, v in (params or {}).items():
+            setattr(ctx.parameters, k, v)
         last = {}
 
         def on_update(remaining, value, loop, elapsed, restarts):
@@ -491,13 +545,13 @@ def main() -> int:
             ctx, str(lp) if isinstance(lp, Path) else io.StringIO(lp)
         )
         t_parse = time.monotonic() - t
-        cap = Capture(getattr(module, attr), every, keep, first)
+        cap = Capture(getattr(module, attr), every, keep, first, late)
         setattr(module, attr, cap)
         try:
             for k in counters.values():
                 k.launches = 0
             t = time.monotonic()
-            result = bt.optimize(ctx, raw)
+            result = (entry or bt.optimize)(ctx, raw)
             torch.cuda.synchronize()
             launches = {name: k.launches for name, k in counters.items()}
         finally:
@@ -505,8 +559,11 @@ def main() -> int:
         if timing is not None:
             timing.update(parse_s=t_parse,
                           setup_s=(cap.t_first or time.monotonic()) - t)
-        rate = result.replicas * last["loop"] / last["elapsed"]
-        return raw, result, launches, rate, list(cap.states)
+        rate = (result.replicas * last["loop"] / last["elapsed"]
+                if last.get("elapsed") else float("nan"))
+        states = list(cap.states)
+        return (raw, result, launches, rate,
+                (states, list(cap.late)) if late else states)
 
     def prepared(state):
         a, kw = cloned(state)
@@ -653,12 +710,13 @@ def main() -> int:
                     "R": result.replicas, "B": result.block_size,
                     "replica_sweeps_per_s": rate}
 
-    # the first states of this run, not the last: hundreds of sweeps on
-    # this class drive the duals of many replicas out of float32's range,
-    # where an error bound on P, pi and S says little
-    raw2, res2, counts2, rate2, nre_states = run_optimize(
+    # the first states of this run for phase 3's times: hundreds of sweeps
+    # on this class drive the duals of many replicas out of float32's
+    # range, where an error bound on P, pi and S says little; the last ones
+    # apart, for phase 25
+    raw2, res2, counts2, rate2, (nre_states, nre_late) = run_optimize(
         instances["scpnre500x5000"], NRE_TIME_LIMIT_S, every=16, keep=3,
-        first=True,
+        first=True, late=2,
     )
     print(f"[optimize scpnre500x5000] status {res2.status.name} objective "
           f"{res2.value} sweeps {res2.loop} R {res2.replicas} "
@@ -733,6 +791,37 @@ def main() -> int:
     per_instance = [kernel_at_states("scp200x1000", main_states, 50),
                     kernel_at_states("scpnre500x5000", nre_states, 5)]
 
+    # ---- phase 25 (run here, while the scpnre run's states are on the
+    # card): kernel A at that run's last sweeps, where non-finite entries
+    # must agree in place (max_err_of)
+    t = time.monotonic()
+    if not nre_late:
+        fail("scpnre500x5000: optimize ran too few sweeps to keep a late state")
+    late_recs = []
+    for i, st in enumerate(nre_late):
+        a = pw.psweep_reference(*cloned(st)[0], **cloned(st)[1])
+        b = pw.psweep(*cloned(st)[0], **cloned(st)[1])
+        err = check(f"scpnre500x5000 late state {i}", a, b)
+        max_err = max(max_err, err)
+        inp = st[0]
+        late_recs.append(dict(
+            max_abs_err=err,
+            nonfinite_P_in=int((~torch.isfinite(inp[2])).sum()),
+            nonfinite_out={k: int((~torch.isfinite(v)).sum())
+                           for k, v in zip(("P", "pi", "S"), b[1:4])},
+            max_abs_P_in=float(inp[2][torch.isfinite(inp[2])].abs().max()),
+        ))
+        print(f"[scpnre500x5000 late state {i}] P entering: "
+              f"{late_recs[-1]['nonfinite_P_in']} non-finite of "
+              f"{inp[2].numel()}, largest finite |P| "
+              f"{late_recs[-1]['max_abs_P_in']:.4g}; non-finite after the "
+              f"sweep {late_recs[-1]['nonfinite_out']}, in the same places "
+              f"in kernel and plain version")
+        del a, b, inp
+    del nre_late
+    torch.cuda.empty_cache()
+    print(f"[phase 25] {time.monotonic() - t:.1f} s")
+
     # ---- phase 4: the DP kernel vs its plain version at random inputs
     z_instances = {
         "zknap200x1000": random_z_multiknapsack_lp(200, 1000, seed=2),
@@ -758,13 +847,14 @@ def main() -> int:
                  f"on {mis} of {got.numel()} bits")
         return got
 
-    def dp_bound(cp, rows, R):
+    def dp_bound(cp, rows, R, itemsize=4, rate=F32_OPS_PER_S):
         """Least time of one DP call over the block ``rows`` and R
         replicas, counting only the rows the block sends to the DP
         (``cp.dp_row``; the kernel leaves the others alone): the bytes it
-        needs (r, the row tables and the slot mask of the DP rows read,
-        the chosen set written) over the memory rate, or its operations over the
-        float32 rate: per (row, replica) the table's set-up 1 per w; per
+        needs (r at ``itemsize`` bytes, the row tables and the slot mask of
+        the DP rows read, the chosen set written) over the memory rate, or
+        its operations over ``rate``, the card's rate for the score type:
+        per (row, replica) the table's set-up 1 per w; per
         slot and w the shift test, the add, the compare and two selects
         5; the argmin over w 4 per w (the range test 2, the compare and
         the select); the read-out 2 per slot. The table itself stays on
@@ -773,10 +863,11 @@ def main() -> int:
         n_dp = int(cp.dp_row[rows.long()].sum())
         # the chosen set [B, Kr, R] is written for every row of the block
         # (all 0 for a row that is not a DP row) and the row list read
-        nbytes = B * Kr * R + 5 * B + 4 * n_dp * Kr * R + 5 * n_dp * Kr + 12 * n_dp
+        nbytes = (B * Kr * R + 5 * B + itemsize * n_dp * Kr * R + 5 * n_dp * Kr
+                  + 12 * n_dp)
         ops = n_dp * R * (W * (1 + 5 * Kr + 4) + 2 * Kr)
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = ops / F32_OPS_PER_S * 1e3
+        t_o = ops / rate * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     def dp_timed(dp_args, reps):
@@ -1384,7 +1475,267 @@ def main() -> int:
                    sweeps_per_s=row_rate,
                    sweep_max_abs_err=[r["errs"] for r in rows])
 
-    # ---- phase 20: the kernels line, then the result line
+    # ---- phase 21: kernel B's double instance at random inputs
+    dp64_mismatches_before = dp_mismatches
+    dp64_records = []
+
+    def dp64_record(label, dp_args, reps, **extra):
+        """Kernel B in double against its plain version (bit for bit),
+        then timed in turns with its first design, with its bound at
+        8-byte scores and the float64 rate."""
+        got = dp_check(label, dp_args)
+        cp, rows_c, r = dp_args[:3]
+        b_ms, b_by = dp_bound(cp, rows_c, r.shape[-1], 8, F64_OPS_PER_S)
+        rec = dict(extra, R=r.shape[-1], B=r.shape[0], W=cp.Wdp, Kr=cp.Kr,
+                   dtype="float64", bound_ms=b_ms, bound_by=b_by,
+                   dp_rows=int(cp.dp_row[rows_c.long()].sum()),
+                   chosen_share=float(got.float().mean()),
+                   **dp_timed(dp_args, reps))
+        print(f"[{label}] {rec['dp_rows']} DP rows of {rec['B']}: kernel "
+              f"{rec['ms']:.4f} ms, first design {rec['old_ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {b_ms:.7f} ms ({b_by})")
+        return rec
+
+    t_new = time.monotonic()
+    for name, lp in z_instances.items():
+        cp, _, B = compiled(lp)
+        dp_rows = torch.nonzero(cp.dp_row).flatten().to(torch.int32)
+        n_blocks = dp_rows.numel() // B
+        for R in (DP_R, 1):
+            dplan = zs.dp_launch_plan(cp.Wdp, cp.Kr, R, B, itemsize=8)
+            print(f"[{name} float64 R={R}] launch plan: {dplan}, "
+                  f"{dplan.threads} threads x {dplan.grid(R, B)} CUDA blocks "
+                  f"(float32: {zs.dp_launch_plan(cp.Wdp, cp.Kr, R, B)})")
+            if dplan.variant != "shared":
+                fail(f"{name} float64: the launch plan takes the "
+                     f"{dplan.variant} variant")
+            for minimize in (True, False):
+                for blk in range(n_blocks):
+                    rows_c = dp_rows[blk * B:(blk + 1) * B].contiguous()
+                    r = torch.randn((B, cp.Kr, R), generator=gen, device=dev,
+                                    dtype=torch.float64)
+                    mask = cp.row_mask[rows_c.long()].contiguous()
+                    dp_args = (cp, rows_c, r, mask, minimize)
+                    dp_check(f"{name} float64 R={R} block {blk}", dp_args)
+                    if blk == 0 and minimize:
+                        first = dp_args
+            print(f"[{name} float64 R={R}] DP kernel bit-exact on {n_blocks} "
+                  f"blocks x 2 objectives")
+            dp64_records.append(dp64_record(
+                f"{name} float64 R={R} random", first, 20 if R > 1 else 50,
+                instance=name, inputs="random", plan=dplan._asdict()))
+        del cp, first, dp_args
+        torch.cuda.empty_cache()
+
+    # ---- phase 22: float64 on the card: solve and optimize on
+    # zknap200x1000 (kernel B's double instance), optimize on scp200x1000
+    # (the general sweep); then phase 21 at the Z runs' DP inputs
+    f64 = {"float_type": bt.FloatType.float64}
+    zlp = z_instances["zknap200x1000"]
+    zcp = compiled(zlp)[0]
+    z64 = {}
+    # every 37th DP call (5 mod the 32 blocks of a sweep): the solve's
+    # first 3, which fall on blocks 4, 9 and 14 (real rows, whatever the
+    # run's length), the optimize run's last 6
+    for label, entry, limit, keep, first in (
+            ("solve", bt.solve, F64_SOLVE_TIME_LIMIT_S, 3, True),
+            ("optimize", bt.optimize, F64_TIME_LIMIT_S, 6, False)):
+        raw64, res64, counts64, rate64, states64 = run_optimize(
+            zlp, limit, every=37, keep=keep, module=zs, attr="dp_select",
+            first=first, entry=entry, params=f64)
+        sweeps = res64.sweeps if entry is bt.solve else res64.loop
+        R64 = res64.replicas if entry is bt.optimize else 1  # solve: one
+        B64 = (bt.SolverParameters().block_size if entry is bt.solve
+               else res64.block_size)
+        blocks = -(-zcp.m // B64)
+        ok = bool(res64.solutions) and bt.is_valid_solution(raw64, res64)
+        print(f"[{label} zknap200x1000 float64] status {res64.status.name} "
+              f"objective {res64.value} sweeps {sweeps} R {R64} B "
+              f"{B64} launches {counts64} (blocks per sweep {blocks}) valid {ok}"
+              + (f" replica-sweeps/s {rate64:.1f}" if entry is bt.optimize else ""))
+        if res64.status != bt.ResultStatus.success or not ok:
+            fail(f"{label} zknap200x1000 float64: no valid feasible solution")
+        if counts64["dpselect"] <= 0 or counts64["dpselect"] != sweeps * blocks \
+                or counts64["psweep"]:
+            fail(f"{label} zknap200x1000 float64: launches {counts64} vs "
+                 f"{sweeps} sweeps x {blocks} blocks")
+        if not states64 or states64[0][0][2].dtype != torch.float64:
+            fail(f"{label} zknap200x1000 float64: no float64 DP input kept")
+        z64[label] = dict(objective=res64.value, sweeps=sweeps,
+                          R=R64, B=B64, launches=counts64,
+                          states=states64)
+        if entry is bt.optimize:
+            z64[label]["replica_sweeps_per_s"] = rate64
+    graw, gres, gcounts, grate, _ = run_optimize(
+        instances["scp200x1000"], F64_TIME_LIMIT_S, every=1 << 30, keep=1,
+        module=bopt, attr="sweep", params=f64)
+    gok = bool(gres.solutions) and bt.is_valid_solution(graw, gres)
+    print(f"[optimize scp200x1000 float64] status {gres.status.name} objective "
+          f"{gres.value} sweeps {gres.loop} R {gres.replicas} B "
+          f"{gres.block_size} replica-sweeps/s {grate:.1f} launches {gcounts} "
+          f"valid {gok}")
+    if gres.status != bt.ResultStatus.success or not gok:
+        fail("optimize scp200x1000 float64: no valid feasible solution")
+    if gcounts["psweep"] or gcounts["dpselect"] or gres.loop <= 0:
+        fail(f"optimize scp200x1000 float64 launched a kernel: {gcounts}")
+    f64_rec = dict(
+        {k: {kk: vv for kk, vv in v.items() if kk != "states"}
+         for k, v in z64.items()},
+        optimize_scp200x1000=dict(objective=gres.value, sweeps=gres.loop,
+                                  R=gres.replicas, launches=gcounts,
+                                  replica_sweeps_per_s=grate))
+    for label in ("solve", "optimize"):  # the optimize run's record first
+        recs = [dp64_record(f"zknap200x1000 float64 {label} captured {i}",
+                            cloned(st)[0], 50, instance="zknap200x1000",
+                            inputs=f"captured ({label})")
+                for i, st in enumerate(z64[label].pop("states"))]
+        mean = {k: sum(r[k] for r in recs) / len(recs)
+                for k in ("ms", "old_ms", "plain_ms", "bound_ms")}
+        dp64_records.insert(0, dict(recs[0], **mean, states=len(recs)))
+    dp64_mismatches = dp_mismatches - dp64_mismatches_before
+    del z64
+    torch.cuda.empty_cache()
+
+    # ---- phase 23: equality classes at the JAX package's battery sizes
+    class_instances = {
+        "sppus145": random_set_partition_lp(145, 48, 3, (1, 1000), 30000, seed=3),
+        "tele1200": telebus_crew_lp(1200, 20, 4, seed=2),
+        "nq100": n_queens_lp(100),
+    }
+    class_recs = {}
+    for name, lp in class_instances.items():
+        craw, cres, ccounts, crate, cstates = run_optimize(
+            lp, CLASS_TIME_LIMIT_S, every=32, keep=2)
+        cvalid = bool(cres.solutions) and bt.is_valid_solution(craw, cres)
+        coracle = bt.compute_solution(craw, cres) if cres.solutions else None
+        ccp = cstates[0][0][0] if cstates else None
+        shape = (f"m {ccp.m} ({ccp.m_real} rows, {int(ccp.is_eq[:ccp.m_real].sum())}"
+                 f" equalities) n {ccp.n} Kr {ccp.Kr}" if ccp is not None else "")
+        print(f"[optimize {name}] {shape} status {cres.status.name} objective "
+              f"{cres.value} (oracle {coracle}) sweeps {cres.loop} R "
+              f"{cres.replicas} B {cres.block_size} replica-sweeps/s "
+              f"{crate:.1f} launches {ccounts} valid {cvalid} duration "
+              f"{cres.duration:.2f} s")
+        if cres.status != bt.ResultStatus.success or not cvalid:
+            fail(f"{name}: optimize did not return a valid feasible solution")
+        if abs(coracle - cres.value) > 1e-6 * max(1.0, abs(coracle)):
+            fail(f"{name}: objective {cres.value} vs the oracle's {coracle}")
+        if ccounts["psweep"] <= 0 or ccounts["psweep"] != cres.loop \
+                or ccounts["dpselect"]:
+            fail(f"{name}: launches {ccounts} vs sweeps {cres.loop}")
+        rec = kernel_at_states(name, cstates, 10 if name == "sppus145" else 20)
+        rec.update(optimize=dict(objective=cres.value, sweeps=cres.loop,
+                                 R=cres.replicas, B=cres.block_size,
+                                 replica_sweeps_per_s=crate),
+                   m_real=ccp.m_real, equalities=int(ccp.is_eq[:ccp.m_real].sum()))
+        per_instance.append(rec)
+        class_recs[name] = ccounts["psweep"]
+        del cstates, ccp
+
+    # ---- phase 24: +-1 rows and maximization
+    kraw, kres, kcounts, krate, _ = run_optimize(
+        random_knapsack_101_lp(2000, 64, seed=5), CLASS_TIME_LIMIT_S,
+        every=1 << 30, keep=1, module=bopt, attr="sweep")
+    kvalid = bool(kres.solutions) and bt.is_valid_solution(kraw, kres)
+    koracle = bt.compute_solution(kraw, kres) if kres.solutions else None
+    print(f"[optimize knapsack101 2000x64, maximize] status {kres.status.name} "
+          f"objective {kres.value} (oracle {koracle}) sweeps {kres.loop} R "
+          f"{kres.replicas} B {kres.block_size} replica-sweeps/s {krate:.1f} "
+          f"launches {kcounts} valid {kvalid}")
+    if kres.status != bt.ResultStatus.success or not kvalid:
+        fail("knapsack101 2000x64: optimize did not return a valid solution")
+    if abs(koracle - kres.value) > 1e-6 * max(1.0, abs(koracle)):
+        fail(f"knapsack101 2000x64: objective {kres.value} vs the oracle's "
+             f"{koracle}")
+    if kcounts["psweep"] or kcounts["dpselect"] or kres.loop <= 0:
+        fail(f"knapsack101 2000x64 launched a kernel: {kcounts}")
+
+    # kernel A's non-unit variant, maximizing, at the largest knapsack-101
+    # instance whose selection needs no sort (its rows read middle ranks)
+    kcp, kR, kB = compiled(random_knapsack_101_lp(22, 64, seed=5))
+    if not kcp.sel_reduction_ok or kcp.all_unit_pos or kR != 2048:
+        fail(f"knapsack101 22x64: sel_reduction_ok {kcp.sel_reduction_ok}, "
+             f"all_unit_pos {kcp.all_unit_pos}, R {kR}")
+    kcost = torch.as_tensor(
+        1.0 + np.arange(kcp.n) + 0.01 * ((np.arange(kcp.n) * 37) % 61),
+        dtype=torch.float32, device=dev)
+    kpush = torch.ones((1, kR), dtype=torch.bool, device=dev)
+    before = pw.psweep_kernel.launches
+    a, kshares = run_chain(pw.psweep_reference, kcp, kR, kB, kcost, kpush,
+                           minimize=False)
+    b, _ = run_chain(pw.psweep, kcp, kR, kB, kcost, kpush, minimize=False)
+    kmoved = float((b[1][: kcp.m_real] != 0).any(dim=1).float().mean())
+    print(f"[knapsack101 22x64, maximize] m {kcp.m} ({kcp.m_real} rows) n "
+          f"{kcp.n} Kr {kcp.Kr} R {kR} B {kB}, plan "
+          f"{pw.launch_plan(kcp.n, kcp.Kr, kR, kB)}; scheduled share per sweep "
+          f"{kshares}, pairs with a moved P {kmoved:.4f}, kernel launches "
+          f"{pw.psweep_kernel.launches - before}")
+    if kmoved < 0.5 or pw.psweep_kernel.launches - before != SWEEPS:
+        fail("knapsack101 22x64: the chain moved too little or did not launch "
+             "the kernel")
+    kerr = check("knapsack101 22x64 maximize chain", a, b)
+    max_err = max(max_err, kerr)
+    non_unit_rec = dict(instance="knapsack101 22x64 (random_knapsack_101_lp(22, "
+                        "64, seed=5)), maximize", m=kcp.m, n=kcp.n, Kr=kcp.Kr,
+                        R=kR, B=kB, max_abs_err=kerr, moved=kmoved)
+    del a, b, kcp
+
+    # zknap200x1000 turned to maximize: P is left to grow, as in the JAX
+    # package; kernel B against its plain version at the run's DP inputs
+    zmax_lp = "maximize\n" + zlp.split("\n", 1)[1]
+    track = {"max": torch.zeros((), device=dev),
+             "nonfinite": torch.zeros((), dtype=torch.bool, device=dev)}
+    real_z = zs.z_sweep
+
+    def tracked(*a, **kw):
+        out = real_z(*a, **kw)
+        fin = torch.isfinite(out[1])
+        track["max"] = torch.maximum(
+            track["max"], torch.where(fin, out[1].abs(), 0.0).amax())
+        track["nonfinite"] |= ~fin.all()
+        return out
+
+    zs.z_sweep = tracked
+    try:
+        mraw, mres, mcounts, mrate, m_states = run_optimize(
+            zmax_lp, CLASS_TIME_LIMIT_S, every=37, keep=3, module=zs,
+            attr="dp_select")
+    finally:
+        zs.z_sweep = real_z
+    mvalid = bool(mres.solutions) and bt.is_valid_solution(mraw, mres)
+    zmax_rec = dict(status=mres.status.name, valid=mvalid, objective=mres.value,
+                    sweeps=mres.loop, R=mres.replicas, B=mres.block_size,
+                    max_abs_P=float(track["max"]),
+                    P_went_nonfinite=bool(track["nonfinite"]),
+                    launches=mcounts, replica_sweeps_per_s=mrate)
+    print(f"[optimize zknap200x1000, maximize] status {mres.status.name} valid "
+          f"{mvalid} objective {mres.value} sweeps {mres.loop} R {mres.replicas}"
+          f" largest finite |P| {zmax_rec['max_abs_P']:.6g}, P went non-finite "
+          f"{zmax_rec['P_went_nonfinite']}; launches {mcounts}")
+    mblocks = -(-zcp.m // mres.block_size)
+    if mcounts["dpselect"] != mres.loop * mblocks or mcounts["psweep"]:
+        fail(f"zknap200x1000 maximize: launches {mcounts} vs {mres.loop} sweeps"
+             f" x {mblocks} blocks")
+    if not m_states:
+        fail("zknap200x1000 maximize: no DP input kept")
+    zmax_dp = []
+    for i, st in enumerate(m_states):
+        dp_args = cloned(st)[0]
+        got = dp_check(f"zknap200x1000 maximize captured {i}", dp_args)
+        r = dp_args[2]
+        zmax_dp.append(dict(
+            nonfinite_r=int((~torch.isfinite(r)).sum()),
+            max_abs_r=float(torch.where(torch.isfinite(r), r.abs(), 0).max()),
+            chosen_share=float(got.float().mean())))
+        print(f"[zknap200x1000 maximize captured {i}] bit-exact; reduced costs: "
+              f"{zmax_dp[-1]['nonfinite_r']} non-finite, largest finite "
+              f"|r| {zmax_dp[-1]['max_abs_r']:.6g}")
+    zmax_rec["dp_inputs"] = zmax_dp
+    del m_states, zcp
+    print(f"[phases 21-24] {time.monotonic() - t_new:.1f} s")
+
+    # ---- phase 26: the kernels line, then the result line
+    print(f"[chip_smoke] {time.monotonic() - t_script:.1f} s")
     main = per_instance[0]
     print(json.dumps({"kernels": [{
         "name": "psweep",
@@ -1401,7 +1752,12 @@ def main() -> int:
                              "checkpoint write": ckpt_runs[0]["launches"]["psweep"],
                              "checkpoint resume": ckpt_runs[1]["launches"]["psweep"],
                              "optimize scp200x1000, 1-rank group": g_launches,
-                             "optimize scp200x1000, 2 ranks": l0 + l1},
+                             "optimize scp200x1000, 2 ranks": l0 + l1,
+                             **{f"optimize {name}": n
+                                for name, n in class_recs.items()},
+                             "optimize scp200x1000 float64":
+                                 f64_rec["optimize_scp200x1000"]["launches"]["psweep"],
+                             "optimize knapsack101 2000x64": kcounts["psweep"]},
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": main["ms"],
@@ -1411,6 +1767,8 @@ def main() -> int:
         "library_ms": None,
         "instances": per_instance,
         "per_replica_theta_delta": per_replica_rec,
+        "scpnre500x5000_late_states": late_recs,
+        "non_unit_maximize": non_unit_rec,
         "optimize": optimize_rec,
         "optimize_qsap500x10": qsap_rec,
     }, {
@@ -1420,7 +1778,9 @@ def main() -> int:
         "replaces": "JAX package ops/zsweep.py:125 (_dp_select_pallas)",
         "launches": zcounts["dpselect"],
         "launches_by_path": {"optimize zknap200x1000": zcounts["dpselect"],
-                             "solve zknap200x1000": zcounts1["dpselect"]},
+                             "solve zknap200x1000": zcounts1["dpselect"],
+                             "optimize zknap200x1000, maximize":
+                                 mcounts["dpselect"]},
         "max_abs_err": dp_max_err,
         "mismatches": dp_mismatches,
         "ms": dp_main["ms"],
@@ -1431,6 +1791,27 @@ def main() -> int:
         "instances": dp_records,
         "optimize": z_rec,
         "solve": z_solve_rec,
+        "optimize_maximize": zmax_rec,
+    }, {
+        "name": "dpselect<double>",
+        "route": "cuda",
+        "source": "baryonyx_torch/csrc/dpselect.cu",
+        "replaces": "JAX package ops/zsweep.py:125 (_dp_select_pallas; in "
+                    "float64 the JAX package runs _dp_select, :42)",
+        "launches": f64_rec["optimize"]["launches"]["dpselect"],
+        "launches_by_path": {
+            "optimize zknap200x1000 float64":
+                f64_rec["optimize"]["launches"]["dpselect"],
+            "solve zknap200x1000 float64": f64_rec["solve"]["launches"]["dpselect"]},
+        "max_abs_err": dp_max_err,
+        "mismatches": dp64_mismatches,
+        "ms": dp64_records[0]["ms"],
+        "plain_ms": dp64_records[0]["plain_ms"],
+        "bound_ms": dp64_records[0]["bound_ms"],
+        "bound_by": dp64_records[0]["bound_by"],
+        "library_ms": None,
+        "instances": dp64_records,
+        "float64_runs": f64_rec,
     }], "general_sweep": sweep_recs, "solve": solve_rec,
         "optimize_general_sweep": fallback_rec, "meta": meta_recs,
         "checkpoint": ckpt_runs, "two_ranks": two_rec, "row_route": row_rec}))

@@ -17,8 +17,11 @@ knapsack DP kernel (csrc/dpselect.cu) is held against its plain version
 bit for bit on the DP rows of two Z instances (table widths 88 and 2048),
 for both objectives, on a block that mixes DP rows with others, in its
 first design (the device_table variant), and at 1 and 3 replicas (solve
-mode's shape). Kernel and plain version also agree, S bit for bit, at a
-state with an infinite P on pairs that are not scheduled.
+mode's shape); its double instance bit for bit at 512 and 1 replicas,
+and a float64 solve on a Z instance launches it once per block. Kernel
+and plain version also agree, S bit for bit, at a state with an infinite
+P on pairs that are not scheduled. The sweeps' column sums and a Z sweep
+repeat bit for bit on the card.
 """
 
 import numpy as np
@@ -216,12 +219,16 @@ Z_INSTANCES = {
 }
 
 
-def _z_compiled(name, dev):
+def _z_compiled_lp(lp, dev):
     ctx = bt.make_context(0)
-    pb = preprocess(ctx, bt.parse_lp(Z_INSTANCES[name]()))
+    pb = preprocess(ctx, bt.parse_lp(lp))
     return compile_problem(
         make_merged_constraints(ctx, pb), len(pb.vars.values), device=dev
     )
+
+
+def _z_compiled(name, dev):
+    return _z_compiled_lp(Z_INSTANCES[name](), dev)
 
 
 @pytest.mark.gpu
@@ -286,7 +293,7 @@ def test_dp_kernel_refuses_what_it_does_not_take(cuda):
     mask = cp.row_mask[rows_c.long()].contiguous()
     r = torch.zeros((8, cp.Kr, 64), device=cuda)
     with pytest.raises(ValueError, match="dpselect"):
-        zs.dp_select(cp, rows_c, r.double(), mask, True)  # wrong dtype
+        zs.dp_select(cp, rows_c, r.half(), mask, True)  # wrong dtype
     with pytest.raises(ValueError, match="dpselect"):
         zs.dp_select(cp, rows_c.long(), r, mask, True)  # wrong index type
     with pytest.raises(ValueError, match="dpselect"):
@@ -321,6 +328,69 @@ def test_dp_kernel_at_one_and_three_replicas(cuda, name, replicas):
             want = zs.dp_select_reference(cp, rows_c, r, mask, minimize)
             assert torch.equal(got, want)
             assert got.any() and not got[mask].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["planned", "first_design"])
+@pytest.mark.parametrize("name", list(Z_INSTANCES))
+def test_dp_kernel_in_double_matches_plain_version(cuda, name, variant):
+    """The kernel's double instance, bit for bit, at 512 replicas and at
+    one, both objectives, at N(0, 1) reduced costs and at costs near
+    1e30, where a finite 1e30 would no longer stand for "out of reach"
+    (its "infinity" is +inf in float64, as in the plain version)."""
+    cp = _z_compiled(name, cuda)
+    dp_rows = torch.nonzero(cp.dp_row).flatten().to(torch.int32)
+    rng = np.random.default_rng(7)
+    for replicas in (512, 1):
+        plan = zs.dp_launch_plan(cp.Wdp, cp.Kr, replicas, 8, itemsize=8)
+        assert plan.variant == "shared"
+        assert plan == zs.dp_plan(cp.Wdp, cp.Kr, plan.G, plan.T, itemsize=8)
+        if variant == "first_design":
+            plan = zs.DEVICE_TABLE
+        for scale in (1.0, 1e30):
+            for minimize in (True, False):
+                rows_c = dp_rows[:8].contiguous()
+                r = torch.as_tensor(
+                    rng.normal(0, 1, (8, cp.Kr, replicas)) * scale,
+                    dtype=torch.float64, device=cuda,
+                )
+                mask = cp.row_mask[rows_c.long()].contiguous()
+                before = zs.dp_select_kernel.launches
+                got = zs.dp_select_kernel(cp, rows_c, r, mask, minimize, plan)
+                torch.cuda.synchronize()
+                assert zs.dp_select_kernel.launches == before + 1
+                want = zs.dp_select_reference(cp, rows_c, r, mask, minimize)
+                assert torch.equal(got, want), (replicas, scale, minimize)
+                assert got.any()
+
+
+@pytest.mark.gpu
+def test_float64_z_solve_reaches_the_double_kernel(cuda, monkeypatch):
+    """Solve mode in float64 on a small Z instance with DP rows: a valid
+    solution; every block of every sweep launches the kernel's double
+    instance, and the plain version is never called."""
+    from baryonyx_torch.core.params import FloatType
+
+    def refused(*a, **kw):
+        raise AssertionError("the plain DP ran on the card")
+
+    monkeypatch.setattr(zs, "dp_select_reference", refused)
+    lp = random_z_multiknapsack_lp(40, 160, row_len=(14, 22), seed=5)
+    ctx = bt.make_context(0)
+    ctx.parameters.seed = 3
+    ctx.parameters.time_limit = 2.0
+    ctx.parameters.float_type = FloatType.float64
+    raw = bt.parse_lp(lp)
+    cp = _z_compiled_lp(lp, cuda)
+    assert cp.Wdp > 0
+    zs.dp_select_kernel.launches = 0
+    res = bt.solve(ctx, raw, device=cuda)
+    torch.cuda.synchronize()
+    assert res.status == bt.ResultStatus.success
+    assert bt.is_valid_solution(raw, res)
+    blocks = -(-cp.m // ctx.parameters.block_size)
+    assert res.sweeps > 0
+    assert zs.dp_select_kernel.launches == res.sweeps * blocks
 
 
 @pytest.mark.gpu
@@ -377,6 +447,43 @@ def test_kernel_and_plain_version_agree_at_a_nonfinite_P(cuda, variant):
     assert torch.equal(a[1], b[1])
     assert torch.isinf(b[1][k_row, 0, 5]) and torch.isinf(b[1][k_all, 0, 7])
     assert (b[1][k_row, 0, 6] != P0[k_row, 0, 6]).item()  # its neighbor moved
+
+
+@pytest.mark.gpu
+def test_sweeps_repeat_bit_for_bit(cuda):
+    """The sweeps' scatter-adds (ops/sweep.py:add_rows_) sum in one order
+    on the card: the column sums of a large random state, and three Z
+    sweeps from one state, come out the same bit for bit every time."""
+    from baryonyx_torch.ops.sweep import column_sums
+
+    cp = _z_compiled("zknap", cuda)
+    rng = np.random.default_rng(5)
+    R = 512
+    P = torch.as_tensor(rng.normal(0, 1, (cp.m, cp.Kr, R)), dtype=torch.float32,
+                        device=cuda) * cp.row_mask[:, :, None]
+    pi = torch.as_tensor(rng.normal(0, 1, (cp.m, R)), dtype=torch.float32,
+                         device=cuda)
+    sums = [column_sums(cp, P, pi) for _ in range(3)]
+    sums += [zs.column_sums_abs(cp, P, pi) for _ in range(2)]
+    assert torch.equal(sums[0], sums[1]) and torch.equal(sums[0], sums[2])
+    assert torch.equal(sums[3], sums[4])
+    x = torch.as_tensor((rng.random((cp.n, R)) < 0.3).astype(np.int32),
+                        device=cuda)
+    cost = torch.as_tensor(rng.random(cp.n), dtype=torch.float32, device=cuda)
+    sched = torch.ones((cp.m, R), dtype=torch.bool, device=cuda)
+    order = torch.arange(cp.m, dtype=torch.int32, device=cuda)
+    outs = []
+    for _ in range(2):
+        xs, Ps, pis = x, P.clone() * 0.01, pi.clone() * 0.01
+        for _ in range(3):
+            xs, Ps, pis, _, _ = zs.z_sweep(
+                cp, xs, Ps, pis, cost, sched, order,
+                torch.full((R,), 0.2, device=cuda), 0.01, 0.5, None,
+                torch.zeros(R, device=cuda), block_size=8)
+        outs.append((xs, Ps, pis))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -6,8 +6,9 @@ admit a plan the card can launch: at most 232,448 bytes of shared memory
 (static part included), at most 1,024 threads, a replica group that
 divides 32, a grid of at least one CUDA block. The four shapes the smoke
 script drives (scp200x1000, the scpnre class, the quadratic qsap500x10,
-DP tables of width 88 and 2048) must get the redesigned variants, not the
-first designs. Phase B of
+DP tables of width 88 and 2048, in float32 and in float64) must get the
+redesigned variants, not the first designs; the DP's double instance
+counts its tables at 8 bytes an entry. Phase B of
 the sweep kernel applies the slots of one row in parallel: that rests on
 the variables of a row being distinct, which is checked here on the four
 instance classes of tests/test_torch_layout.py.
@@ -171,3 +172,32 @@ def test_dp_plan_at_solve_mode_replica_counts(W, Kr, R):
     assert plan.threads % 32 == 0 and plan.threads <= zs.DP_LANES_MAX
     assert plan.grid(R, 8) == (R, 8)
     assert plan == zs.dp_plan(W, Kr, 1, plan.T)
+
+
+@pytest.mark.parametrize("W,Kr", [(88, 24), (2048, 24)])
+@pytest.mark.parametrize("R", [512, 1])
+def test_dp_plan_in_double(W, Kr, R):
+    """The DP kernel's double instance: its tables take 8-byte entries, so
+    the plan counts them at that size; at W 2048 and 512 replicas the
+    float32 plan's group of 8 (199,648 bytes) would need 332,512 bytes, so
+    the group drops to 4. Both smoke-script tables keep the shared
+    variant, and the plan's bytes are the kernel's own arithmetic."""
+    plan = zs.dp_launch_plan(W, Kr, R, 8, itemsize=8)
+    f32 = zs.dp_launch_plan(W, Kr, R, 8)
+    assert plan.variant == f32.variant == "shared"
+    assert plan.smem_bytes + pw.SMEM_STATIC <= SMEM_MAX
+    assert plan == zs.dp_plan(W, Kr, plan.G, plan.T, itemsize=8)
+    nw = (Kr + 31) // 32
+    nwarps = plan.G * plan.T // 32
+    assert plan.smem_bytes == 8 * (2 * W * plan.G + Kr * plan.G + nwarps * plan.G) + 4 * (
+        nw * W * plan.G + 2 * Kr + nwarps * plan.G + nw * plan.G)
+    assert plan.T == f32.T and R % plan.G == 0
+    if (W, R) == (2048, 512):
+        assert (f32.G, f32.smem_bytes, plan.G) == (8, 199_648, 4)
+        assert zs._dp_smem_bytes(W, Kr, 8, f32.T, itemsize=8) == 332_512
+        with pytest.raises(ValueError):
+            zs.dp_plan(W, Kr, 8, f32.T, itemsize=8)
+    else:
+        assert plan.G == f32.G
+    with pytest.raises(ValueError):
+        zs.dp_plan(W, Kr, plan.G, plan.T, itemsize=2)
