@@ -95,6 +95,11 @@ def dp_select_reference(
     dev = r.device
     big = dp_big(r.dtype)
     rows = rows_c.long()
+    is_dp = cp.dp_row[rows]
+    if not bool(is_dp.any()):
+        # a block without a DP row (padding rows among them) chooses
+        # nothing: skip the table (one host read)
+        return torch.zeros((B, Kr, R), dtype=torch.bool, device=dev)
     rq = r if minimize else -r
     rq = torch.where(mask[:, :, None], rq, big)
 
@@ -133,7 +138,7 @@ def dp_select_reference(
     words = msk.gather(2, wbest[None, :, None, :].expand(nw, B, 1, R))[:, :, 0]
     s_iota = torch.arange(Kr, device=dev)
     bits = (words[s_iota // 32] >> (s_iota % 32)[:, None, None]) & 1  # [Kr, B, R]
-    return (bits.permute(1, 0, 2) > 0) & cp.dp_row[rows][:, None, None]
+    return (bits.permute(1, 0, 2) > 0) & is_dp[:, None, None]
 
 
 class DPPlan(NamedTuple):

@@ -98,6 +98,29 @@ PHASE_ANNEAL, PHASE_PUSH, PHASE_PUSH_ITER = 0, 1, 2
 FLIP_DECAY = 0.9  # per host chunk (see evolve)
 INT_MAX = 2**31 - 1
 EXCHANGE_K = 16  # population members each rank sends per chunk
+# the ablation-study hooks of one_step (see _ablate)
+ABLATE_TOKENS = frozenset({"compact", "value", "flips", "insert", "violw"})
+
+
+def _ablate() -> frozenset:
+    """The hooks that the comma-separated ``BARYONYX_ABLATE`` list names,
+    matching each token exactly after stripping whitespace; other tokens
+    are ignored. Each switches off one piece of the evolution step, for
+    ablation studies only:
+
+    - ``compact``: the scheduled rows are not compacted to the front of
+      the order; the fused sweep walks every row block (``n_rows = m``);
+    - ``value``: every replica's objective value is 0 (the quadratic term
+      is still added);
+    - ``flips``: the per-variable flip counter is not advanced;
+    - ``insert``: no candidate enters the population (the victims are
+      still drawn, so the random stream does not move);
+    - ``violw``: restarting replicas keep the sweep's violated set.
+
+    ``optimize_compiled`` reads it once, when it starts; ``one_step`` then
+    reads ``EvolveInputs.ablate`` and never the environment."""
+    v = os.environ.get("BARYONYX_ABLATE", "")
+    return frozenset(t.strip() for t in v.split(",")) & ABLATE_TOKENS
 
 
 class ReplicaState(NamedTuple):
@@ -153,6 +176,8 @@ class EvolveInputs(NamedTuple):
     # the process group whose ranks share the replica axis (None: this
     # process runs every replica)
     mesh: Optional[Mesh] = None
+    # the ablation hooks switched on (_ablate); empty in a real run
+    ablate: frozenset = frozenset()
 
 
 def fused_sweep_applies(
@@ -207,14 +232,19 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
     )
     sched = sched & ~skip
 
-    # compact the scheduled rows (union over replicas) to the front of
-    # the order; n_rows bounds the kernel's block loop on the device. The
-    # sentinel m is never used as an index.
-    sched_any = sched.any(dim=1)  # [m]
-    padded = torch.cat([sched_any, sched_any.new_zeros(1)])[
-        order.long().clamp(max=m)
-    ]
-    order2 = order[torch.argsort((~padded).to(torch.int8), stable=True)]
+    if "compact" in ev.ablate:
+        # every row block in make_order's order: the sentinel m stands
+        # only past index m, so the fused sweep's m rows never reach it
+        order2, padded = order, None
+    else:
+        # compact the scheduled rows (union over replicas) to the front
+        # of the order; n_rows bounds the kernel's block loop on the
+        # device. The sentinel m is never used as an index.
+        sched_any = sched.any(dim=1)  # [m]
+        padded = torch.cat([sched_any, sched_any.new_zeros(1)])[
+            order.long().clamp(max=m)
+        ]
+        order2 = order[torch.argsort((~padded).to(torch.int8), stable=True)]
 
     if cp.has_z:
         if ev.random_solver:
@@ -243,7 +273,7 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
             quad_fac=ev.quad_fac, S=rs.S, S_fresh=(state.sweeps % 16) != 0,
         )
     else:
-        n_rows = padded.sum(dtype=torch.int32)
+        n_rows = m if padded is None else padded.sum(dtype=torch.int32)
         seed = torch.randint(
             0, INT_MAX, (2,), generator=gen, device=dev, dtype=torch.int32
         )
@@ -254,13 +284,18 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
             S_fresh=(state.sweeps % 16) != 0,
         )
 
-    value = ev.cost_orig @ x.to(dtype) + ev.cost_constant
+    if "value" in ev.ablate:
+        value = torch.zeros((R,), dtype=dtype, device=dev)
+    else:
+        value = ev.cost_orig @ x.to(dtype) + ev.cost_constant
     if ev.quad_terms is not None:
         value = value + quad_value(ev.quad_terms, x, dtype)
     found = remaining == 0  # [R]
     # per-variable instability: sweep-induced bit flips summed over
     # replicas (before any restart reseeding below)
-    flips = state.flips + (x != rs.x).to(torch.float32).sum(dim=1)
+    flips = state.flips
+    if "flips" not in ev.ablate:
+        flips = flips + (x != rs.x).to(torch.float32).sum(dim=1)
     score = value if minimize else -value
     best_value = torch.where(
         found & (score < rs.best_value), score, rs.best_value
@@ -298,10 +333,14 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
     cand_mask = found | anneal_fail
     cand_remaining = torch.where(found, 0, best_rem).to(torch.int32)
     Psize = state.pop.x.shape[0]
-    pop = batch_insert(
-        state.pop, x.T, value, cand_remaining, cand_mask,
-        draw_victims(gen, R, Psize, dev), ev.hash_weights, minimize,
-    )
+    # drawn under "insert" too, so the later draws stay where they are
+    victims = draw_victims(gen, R, Psize, dev)
+    pop = state.pop
+    if "insert" not in ev.ablate:
+        pop = batch_insert(
+            pop, x.T, value, cand_remaining, cand_mask, victims,
+            ev.hash_weights, minimize,
+        )
 
     # --- reinit for restarting replicas (reference: :528-554) ---
     ladder = rs.kappa_append < hp["kappa_improve_stop"]
@@ -406,7 +445,8 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
         ).to(torch.int32)
 
     # restarting replicas recompute their violated set from the new x
-    viol = torch.where(restart[None, :], violated_mask(cp, x), viol)
+    if "violw" not in ev.ablate:
+        viol = torch.where(restart[None, :], violated_mask(cp, x), viol)
 
     new_rs = ReplicaState(
         x=x, P=P, pi=pi, S=S, viol=viol, kappa=kappa,
@@ -698,6 +738,18 @@ def optimize_compiled(
     f64 = params.float_type == FloatType.float64
     dtype = torch.float64 if f64 else torch.float32
     use_random = params.solver == SolverType.random
+    # the ablation hooks, read once per run; the ranks of a process group
+    # must all see the same value (torchrun gives them one environment)
+    ablate = _ablate()
+    if os.environ.get("BARYONYX_ABLATE"):
+        # a leftover ablation flag silently corrupts real solves ("value"
+        # zeroes the objective while the status still reports success)
+        ctx.warning(
+            "BARYONYX_ABLATE={} is set: this run executes ABLATED solver "
+            "steps (results are for ablation studies only). The flag is "
+            "read at the start of each optimize run.\n",
+            os.environ["BARYONYX_ABLATE"],
+        )
 
     ret = Result(method="optimize")
     n = len(pb.vars.values)
@@ -1063,6 +1115,7 @@ def optimize_compiled(
         quad_mat=quad_mat,
         quad_terms=quad_terms,
         mesh=mesh,
+        ablate=ablate,
     )
 
     # Stopping: with a time limit, run until it expires (reference:

@@ -268,3 +268,24 @@ def batch_insert(
         hash=torch.where(hit, cand_hash[src], pop.hash),
     )
     return sort_population(new, minimize)
+
+
+def choose_solution_index(
+    gen: torch.Generator, pop_size: int, mean, stddev
+) -> torch.Tensor:
+    """|N(mean, stddev)| clipped to 0.999, then scaled to a member index:
+    biased toward the best (reference: choose_a_solution, :152-159). One
+    clipped draw instead of rejection resampling. An int32 scalar on the
+    generator's device."""
+    z = torch.randn((), generator=gen, device=gen.device)
+    v = (mean + stddev * z).abs().clamp(max=0.999)
+    return (v * pop_size).to(torch.int32)
+
+
+def crossover_mix(
+    gen: torch.Generator, x1: torch.Tensor, x2: torch.Tensor
+) -> torch.Tensor:
+    """Uniform bitwise crossover: a fair coin per bit takes x2's bit into
+    x1 (reference: storage::crossover, :359-368)."""
+    take2 = torch.rand(x1.shape, generator=gen, device=x1.device) < 0.5
+    return torch.where(take2 & (x1 != x2), x2, x1).to(x1.dtype)

@@ -154,6 +154,21 @@ baryonyx_torch/csrc, then:
  25. (run beside phase 3, while the states are on the card) kernel A
      against its plain version at the scpnre run's last kept sweeps, where
      non-finite entries of P, pi and S must agree in place;
+ 27. (run before phase 26) the BARYONYX_ABLATE hooks: optimize on
+     scp200x1000 for 2 s with no ablation, then once per hook (compact,
+     value, flips, insert, violw), the variable set just before each run
+     and restored after, then once more with no ablation (the first run
+     of a series is the slowest): kernel A launched once per sweep, the
+     warning printed exactly when a hook is named, a valid solution where
+     the hook leaves the population's inserts and values alone (none,
+     compact, flips, violw; value and insert print what they end with);
+     prints each run's replica-sweeps/s beside the first unablated run's.
+     At the compact run's kept sweep inputs (n_rows = m, make_order's
+     order) kernel A against its plain version (phase 1's tolerances, x
+     bit for bit), then timed in turns against the same states compacted
+     as the plain step compacts them, ms per row block and the byte bound
+     of each. Then zknap200x1000 under compact for 2 s: valid, DP
+     launches equal to sweeps x blocks;
  26. prints one JSON line with every kernel's numbers (kernel B's double
      instance as a row of its own), then the last line
      {"ok": true, "device": {...}}.
@@ -169,6 +184,7 @@ import collections
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -196,6 +212,12 @@ RANKS_TIMEOUT_S = 240.0  # no spawned rank outlives this
 F64_SOLVE_TIME_LIMIT_S = 10.0  # float64 solve on zknap200x1000
 F64_TIME_LIMIT_S = 4.0  # each float64 optimize run
 CLASS_TIME_LIMIT_S = 4.0  # each optimize run of phases 23 and 24
+ABLATE_TIME_LIMIT_S = 2.0  # each optimize run of phase 27
+# phase 27's runs on scp200x1000: no ablation, one run per hook, and no
+# ablation again (the first run of a series is the slowest)
+ABLATE_RUNS = ("", "compact", "value", "flips", "insert", "violw", "")
+# hooks that leave the population's inserts and values alone: valid runs
+ABLATE_VALID = ("", "compact", "flips", "violw")
 SWEEP_R = 32  # replicas of the general sweep's card-against-CPU check
 SWEEP_TOL = 1e-5  # absolute plus relative, on P, pi and S
 DP_R = 512  # replicas of the DP parity phase (the Z path's default R)
@@ -1734,6 +1756,143 @@ def main() -> int:
     del m_states, zcp
     print(f"[phases 21-24] {time.monotonic() - t_new:.1f} s")
 
+    # ---- phase 27: the BARYONYX_ABLATE hooks on the card
+    t27 = time.monotonic()
+
+    def ablated(token, lp, every, keep, **kw):
+        """run_optimize with BARYONYX_ABLATE=token (unset for ""), the
+        variable restored after; the warnings the run printed."""
+        prev = os.environ.pop("BARYONYX_ABLATE", None)
+        if token:
+            os.environ["BARYONYX_ABLATE"] = token
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                got = run_optimize(lp, ABLATE_TIME_LIMIT_S, every, keep, **kw)
+        finally:
+            os.environ.pop("BARYONYX_ABLATE", None)
+            if prev is not None:
+                os.environ["BARYONYX_ABLATE"] = prev
+        return got, "BARYONYX_ABLATE=" in out.getvalue()
+
+    ablate_recs = {}
+    compact_states = []
+    for token in ABLATE_RUNS:
+        (araw, ares, acounts, arate, astates), warned = ablated(
+            token, instances["scp200x1000"], every=64, keep=4)
+        avalid = bool(ares.solutions) and bt.is_valid_solution(araw, ares)
+        name = token or ("none, again" if "none" in ablate_recs else "none")
+        ablate_recs[name] = dict(
+            status=ares.status.name, valid=avalid, objective=ares.value,
+            sweeps=ares.loop, R=ares.replicas, B=ares.block_size,
+            replica_sweeps_per_s=arate, launches=acounts, warned=warned)
+        rel = arate / ablate_recs["none"]["replica_sweeps_per_s"]
+        print(f"[ablate {name}] status {ares.status.name} valid {avalid} "
+              f"objective {ares.value} sweeps {ares.loop} R {ares.replicas} "
+              f"B {ares.block_size} replica-sweeps/s {arate:.1f} ({rel:.3f} "
+              f"of the first unablated run) launches {acounts} warned "
+              f"{warned}")
+        if token in ABLATE_VALID and (
+                ares.status != bt.ResultStatus.success or not avalid):
+            fail(f"BARYONYX_ABLATE={token}: no valid feasible solution")
+        if acounts["psweep"] <= 0 or acounts["psweep"] != ares.loop \
+                or acounts["dpselect"]:
+            fail(f"BARYONYX_ABLATE={token}: launches {acounts} vs sweeps "
+                 f"{ares.loop}")
+        if warned != bool(token):
+            fail(f"BARYONYX_ABLATE={token}: warning printed {warned}")
+        if token == "compact":
+            compact_states = astates
+        del araw, ares, astates
+
+    # kernel A over every row block (n_rows = m, the order as make_order
+    # gave it) against its plain version, then timed in turns with the
+    # same states compacted as the plain step compacts them
+    if not compact_states:
+        fail("BARYONYX_ABLATE=compact: too few sweeps to keep a state")
+    compact_recs = []
+    for i, st in enumerate(compact_states):
+        a, kw = cloned(st)
+        cp, order, sched = a[0], a[6], a[5]
+        unpermuted = bool(
+            (order[:cp.m].sort().values
+             == torch.arange(cp.m, device=dev, dtype=order.dtype)).all()
+            and (order[cp.m:] == cp.m).all())
+        if kw["n_rows"] != cp.m or not unpermuted:
+            fail(f"compact state {i}: n_rows {kw['n_rows']} (m {cp.m}), "
+                 f"every row once before the sentinel {unpermuted}")
+        ref = pw.psweep_reference(*cloned(st)[0], **cloned(st)[1])
+        got = pw.psweep(*cloned(st)[0], **cloned(st)[1])
+        err = check(f"compact state {i}", ref, got)
+        max_err = max(max_err, err)
+        mismatches += compare(ref, got)[0]
+        del ref, got
+        padded = torch.cat([sched.any(dim=1), sched.new_zeros(1)])[
+            order.long().clamp(max=cp.m)]
+        order_c = order[torch.argsort((~padded).to(torch.int8), stable=True)]
+        comp = (a[:6] + (order_c,) + a[7:],
+                dict(kw, n_rows=padded.sum(dtype=torch.int32)))
+        inp_all, inp_c = prepared(st), prepared(comp)
+        B = inp_all.Bb
+        ms = in_turns({"every_block_ms": lambda _: pw.psweep_kernel(inp_all),
+                       "compacted_ms": lambda _: pw.psweep_kernel(inp_c)},
+                      None, 50)
+        b_all, by_all, share = bound(cp, inp_all)
+        b_c, by_c, _ = bound(cp, inp_c)
+        blocks_c = -(-int(inp_c.n_rows) // B)
+        compact_recs.append(dict(
+            **ms, blocks=cp.m // B, compacted_blocks=blocks_c,
+            bound_ms=b_all, bound_by=by_all, compacted_bound_ms=b_c,
+            compacted_bound_by=by_c, sched_share=share, max_abs_err=err,
+            plain_ms=timed(pw._sweep_plain, prepared(st), 1)))
+        r = compact_recs[-1]
+        print(f"[compact state {i}] scheduled share {share:.4f}: every row "
+              f"block ({r['blocks']}) {r['every_block_ms']:.4f} ms, "
+              f"{1e3 * r['every_block_ms'] / r['blocks']:.2f} us per block, "
+              f"bound {b_all:.5f} ms ({by_all}); compacted "
+              f"({blocks_c} blocks) {r['compacted_ms']:.4f} ms, "
+              f"{1e3 * r['compacted_ms'] / max(blocks_c, 1):.2f} us per block, "
+              f"bound {b_c:.5f} ms ({by_c}); plain {r['plain_ms']:.4f} ms")
+        del inp_all, inp_c, comp
+    compact_rec = dict(
+        instance="scp200x1000, every row block (BARYONYX_ABLATE=compact)",
+        states=len(compact_recs), m=cp.m, B=B,
+        **{k: sum(r[k] for r in compact_recs) / len(compact_recs)
+           for k in ("every_block_ms", "compacted_ms", "bound_ms",
+                     "compacted_bound_ms", "plain_ms", "sched_share",
+                     "compacted_blocks")},
+        by_state=compact_recs)
+    print(f"[compact] mean over {len(compact_recs)} states: every row block "
+          f"{compact_rec['every_block_ms']:.4f} ms/sweep, compacted "
+          f"{compact_rec['compacted_ms']:.4f} ms/sweep "
+          f"({compact_rec['compacted_blocks']:.1f} blocks of {cp.m // B})")
+    del compact_states, cp
+
+    # the Z path under compact: its sweep walks every block already
+    (zaraw, zares, zacounts, zarate, zast), zwarned = ablated(
+        "compact", z_instances["zknap200x1000"], every=37, keep=1,
+        module=zs, attr="dp_select")
+    zavalid = bool(zares.solutions) and bt.is_valid_solution(zaraw, zares)
+    zablocks = -(-zast[0][0][0].m // zares.block_size) if zast else 0
+    zablate_rec = dict(status=zares.status.name, valid=zavalid,
+                       objective=zares.value, sweeps=zares.loop,
+                       R=zares.replicas, B=zares.block_size,
+                       replica_sweeps_per_s=zarate, launches=zacounts,
+                       blocks=zablocks, warned=zwarned)
+    print(f"[ablate compact, zknap200x1000] status {zares.status.name} valid "
+          f"{zavalid} objective {zares.value} sweeps {zares.loop} "
+          f"replica-sweeps/s {zarate:.1f} launches {zacounts} (blocks per "
+          f"sweep {zablocks}) warned {zwarned}")
+    if zares.status != bt.ResultStatus.success or not zavalid or not zwarned:
+        fail("zknap200x1000 under compact: no valid solution or no warning")
+    if zacounts["dpselect"] <= 0 or zacounts["psweep"] \
+            or zacounts["dpselect"] != zares.loop * zablocks:
+        fail(f"zknap200x1000 under compact: launches {zacounts} vs "
+             f"{zares.loop} sweeps x {zablocks} blocks")
+    del zaraw, zares, zast
+    torch.cuda.empty_cache()
+    print(f"[phase 27] {time.monotonic() - t27:.1f} s")
+
     # ---- phase 26: the kernels line, then the result line
     print(f"[chip_smoke] {time.monotonic() - t_script:.1f} s")
     main = per_instance[0]
@@ -1757,7 +1916,12 @@ def main() -> int:
                                 for name, n in class_recs.items()},
                              "optimize scp200x1000 float64":
                                  f64_rec["optimize_scp200x1000"]["launches"]["psweep"],
-                             "optimize knapsack101 2000x64": kcounts["psweep"]},
+                             "optimize knapsack101 2000x64": kcounts["psweep"],
+                             **{(f"optimize scp200x1000, BARYONYX_ABLATE={t}"
+                                 if not t.startswith("none") else
+                                 f"optimize scp200x1000, 2 s, {t}"):
+                                r["launches"]["psweep"]
+                                for t, r in ablate_recs.items()}},
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": main["ms"],
@@ -1771,6 +1935,8 @@ def main() -> int:
         "non_unit_maximize": non_unit_rec,
         "optimize": optimize_rec,
         "optimize_qsap500x10": qsap_rec,
+        "every_row_block": compact_rec,
+        "ablate": ablate_recs,
     }, {
         "name": "dpselect",
         "route": "cuda",
@@ -1780,7 +1946,9 @@ def main() -> int:
         "launches_by_path": {"optimize zknap200x1000": zcounts["dpselect"],
                              "solve zknap200x1000": zcounts1["dpselect"],
                              "optimize zknap200x1000, maximize":
-                                 mcounts["dpselect"]},
+                                 mcounts["dpselect"],
+                             "optimize zknap200x1000, BARYONYX_ABLATE=compact":
+                                 zacounts["dpselect"]},
         "max_abs_err": dp_max_err,
         "mismatches": dp_mismatches,
         "ms": dp_main["ms"],
@@ -1792,6 +1960,7 @@ def main() -> int:
         "optimize": z_rec,
         "solve": z_solve_rec,
         "optimize_maximize": zmax_rec,
+        "optimize_compact": zablate_rec,
     }, {
         "name": "dpselect<double>",
         "route": "cuda",

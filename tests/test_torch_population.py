@@ -1,7 +1,9 @@
 """Parity of the port's population machinery and row schedules with the
 JAX package: hash_x, sort_population, batch_insert (victims drawn in the
-test from the JAX key and handed to both), and make_order's static
-policies and cycle switch. All exact: integer and order results."""
+test from the JAX key and handed to both), choose_solution_index and
+crossover_mix (the JAX function's normal draw or bit mask handed to the
+port's), and make_order's static policies and cycle switch. All exact:
+integer and order results."""
 
 import dataclasses
 
@@ -164,3 +166,46 @@ def test_make_order_random_policies_are_permutations():
             static_policy=tparams.ConstraintOrder[policy],
         )
         assert sorted(o.tolist()) == list(range(tcp.m))
+
+
+def test_choose_solution_index_matches_jax(monkeypatch):
+    """The index from a given normal draw: the JAX function's own draw is
+    handed to the port's in place of ``torch.randn``."""
+    real_randn = torch.randn
+    for i, (mean, stddev) in enumerate(
+        [(0.0, 0.3), (0.2, 0.5), (-0.1, 1.5), (0.0, 3.0)] * 8
+    ):
+        key = jax.random.PRNGKey(i)
+        z = np.float32(jax.random.normal(key))
+        want = jpop.choose_solution_index(key, P, mean, stddev)
+        monkeypatch.setattr(torch, "randn", lambda *a, **kw: torch.tensor(z))
+        got = tpop.choose_solution_index(torch.Generator(), P, mean, stddev)
+        assert got.dtype == torch.int32 and got.shape == ()
+        assert int(got) == int(want), (mean, stddev, z)
+    monkeypatch.setattr(torch, "randn", real_randn)
+    g = torch.Generator().manual_seed(3)
+    idx = [int(tpop.choose_solution_index(g, P, 0.0, 0.5)) for _ in range(200)]
+    assert 0 <= min(idx) and max(idx) < P and len(set(idx)) > 1
+
+
+def test_crossover_mix_matches_jax(monkeypatch):
+    """The mix from a given bit mask: the JAX function's coin flips become
+    uniforms below 0.5 exactly where it takes x2's bit."""
+    rng = np.random.default_rng(4)
+    x1 = (rng.random((N, R)) < 0.5).astype(np.int32)
+    x2 = (rng.random((N, R)) < 0.5).astype(np.int32)
+    key = jax.random.PRNGKey(9)
+    take2 = np.asarray(jax.random.bernoulli(key, 0.5, x1.shape))
+    want = np.asarray(jpop.crossover_mix(key, jnp.asarray(x1), jnp.asarray(x2)))
+    u = torch.as_tensor(np.where(take2, 0.25, 0.75).astype(np.float32))
+    real_rand = torch.rand
+    monkeypatch.setattr(torch, "rand", lambda *a, **kw: u)
+    got = tpop.crossover_mix(torch.Generator(), torch.as_tensor(x1), torch.as_tensor(x2))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    monkeypatch.setattr(torch, "rand", real_rand)
+    mixed = tpop.crossover_mix(
+        torch.Generator().manual_seed(1), torch.as_tensor(x1), torch.as_tensor(x2)
+    ).numpy()
+    assert ((mixed == x1) | (mixed == x2)).all()
+    assert (mixed != x1).any() and (mixed != x2).any()

@@ -2,6 +2,11 @@
 
 - ``baryonyx_torch`` exports every name that ``baryonyx_tpu/__init__.py``
   imports or defines for its users (the model's types among them).
+- Every module of ``baryonyx_tpu/`` has its counterpart at the same
+  path under ``baryonyx_torch/``, holding every top-level function,
+  class and assigned name of it (defined there or imported), but for an
+  explicit allow-list of Pallas-only machinery and private details whose
+  role the port fills another way, each with its reason.
 - The memory helpers (``memory_consumed_size``, ``to_string``,
   ``memory_consumed``, ``compiled_memory_consumed``) give the JAX
   package's numbers on the same problems: raw and preprocessed, 0/1, Z
@@ -100,3 +105,101 @@ def test_memory_consumed_matches_jax(name):
         assert tcp.assign_bits is not None
     if name == "qsap":
         assert tcp.quad_var is not None
+
+
+JAX_PKG = JAX_INIT.parent
+PORT_PKG = Path(bt.__file__).parent
+
+# JAX modules the port has no counterpart of, and why
+NO_COUNTERPART = {
+    "runtime.py": "JAX's persistent compilation cache and backend set-up; "
+                  "kernels.py's build cache (build/kernels/) fills the role",
+}
+
+# names of a JAX module the port's counterpart does not have, and why
+NOT_PORTED = {
+    "ops/psweep.py": {
+        "LANE": "the TPU's lane width; the CUDA plan counts warps (WARP)",
+        "PsweepPlan": "the VMEM/SMEM plan; SweepPlan fills its role",
+        "SMEM_BUDGET": "a TPU memory budget; the CUDA plan has SMEM_MAX",
+        "VMEM_BUDGET": "a TPU memory budget; the CUDA plan has SMEM_MAX",
+        "_insert_max": "the Pallas kernel's order statistics; csrc/psweep.cu",
+        "_insert_min": "the Pallas kernel's order statistics; csrc/psweep.cu",
+        "_make_kernel": "the Pallas kernel (A); csrc/psweep.cu",
+        "_psweep_call": "its pallas_call; CudaSweep launches kernel A",
+        "_smem_table_bytes": "the TPU plan's arithmetic; _group_smem_bytes",
+        "_table_chunks": "the TPU plan's arithmetic; launch_plan",
+        "_vmem_bytes": "the TPU plan's arithmetic; _group_smem_bytes",
+        "enabled_mode": "BARYONYX_PALLAS, deliberately not ported: its "
+                        "interpret and force mean nothing on CUDA, and off "
+                        "would route the main path away from kernel A",
+        "plan": "the TPU plan; launch_plan",
+    },
+    "ops/sweep.py": {
+        "_onehot_gather": "TPU gathers as one-hot products; torch indexes",
+        "_onehot_scatter_add": "TPU scatters as one-hot products; add_rows_",
+    },
+    "ops/zsweep.py": {
+        "_DP_BIG": "one infinity for float32; dp_big(dtype) gives both",
+        "_dp_dispatch": "the Pallas/XLA choice; dp_select dispatches",
+        "_dp_select": "the XLA DP; dp_select_reference",
+        "_dp_select_pallas": "the Pallas kernel (B); csrc/dpselect.cu",
+    },
+    "parallel/rowshard.py": {
+        "_squeeze_cp": "shard_map's per-device view; a rank holds its "
+                       "shard (shard_of)",
+    },
+    "solver/optimize.py": {
+        "_evolve_impl": "the jitted body; one_step and evolve",
+        "evolve_sharded": "shard_map over devices; evolve over a process "
+                          "group (EvolveInputs.mesh)",
+    },
+    "solver/solve.py": {"_finalize": "solver/common.py:finalize"},
+    "native/build.py": {
+        "_LIB": "the loaded library; _loaded, keyed by the library's path",
+        "_TRIED": "the failed build; _loaded keeps None for it",
+    },
+}
+
+
+def _top_level(path: Path, imported: bool):
+    """Top-level functions, classes and assigned names of a module, and
+    with ``imported`` the names it imports."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                for e in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                    if isinstance(e, ast.Name):
+                        names.add(e.id)
+        elif imported and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return names
+
+
+JAX_MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_module_has_its_counterpart(rel):
+    if rel in NO_COUNTERPART:
+        assert not (PORT_PKG / rel).exists()
+        return
+    port = PORT_PKG / rel
+    assert port.is_file(), f"baryonyx_torch lacks {rel}"
+    want = _top_level(JAX_PKG / rel, imported=False)
+    have = _top_level(port, imported=True)
+    allowed = NOT_PORTED.get(rel, {})
+    assert not (want - have) - allowed.keys(), f"{rel} lacks {sorted(want - have)}"
+    # the allow-list names only what is really missing
+    assert not allowed.keys() & have, f"{rel}: {sorted(allowed.keys() & have)}"
+    assert allowed.keys() <= want
+
+
+def test_the_allow_lists_name_real_modules():
+    assert set(NOT_PORTED) | set(NO_COUNTERPART) <= set(JAX_MODULES)
+    assert all(reason for names in NOT_PORTED.values() for reason in names.values())
+
