@@ -32,6 +32,7 @@ import os
 import re
 from typing import List, Optional, Tuple
 
+from baryonyx_torch import spans
 from baryonyx_torch.core.context import Context
 from baryonyx_torch.core.errors import FileAccessError, FileFormatError
 from baryonyx_torch.core.model import (
@@ -551,18 +552,19 @@ def make_problem(ctx: Context, source) -> RawProblem:
 
     A file path goes to the native parser where its library builds
     (BARYONYX_TORCH_NO_NATIVE=1 forces the Python parser); a file-like
-    object through ``parse_lp``."""
-    if hasattr(source, "read"):
-        return parse_lp(source.read())
-    if _native_allowed() and os.path.isfile(source):
-        from baryonyx_torch.native.lp import parse_lp_native
+    object through ``parse_lp``. Recorded as the span ``entry.parse``."""
+    with spans.span("entry.parse"):
+        if hasattr(source, "read"):
+            return parse_lp(source.read())
+        if _native_allowed() and os.path.isfile(source):
+            from baryonyx_torch.native.lp import parse_lp_native
 
-        pb = parse_lp_native(str(source))
-        if pb is not None:
-            return pb
-    try:
-        with open(source, "r") as fh:
-            text = fh.read()
-    except OSError as e:
-        raise FileAccessError(str(source), str(e))
-    return parse_lp(text)
+            pb = parse_lp_native(str(source))
+            if pb is not None:
+                return pb
+        try:
+            with open(source, "r") as fh:
+                text = fh.read()
+        except OSError as e:
+            raise FileAccessError(str(source), str(e))
+        return parse_lp(text)

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from baryonyx_torch import spans
 from baryonyx_torch.device import DeviceLike, resolve_device
 from baryonyx_torch.parallel import distributed
 
@@ -28,7 +29,8 @@ _M63 = (1 << 63) - 1
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A process group, this process's rank in it, its size, and the
-    device this rank runs on."""
+    device this rank runs on. Under a profiler, the bytes this rank passes
+    to each collective are counted as ``parallel.bytes``."""
 
     group: Optional[dist.ProcessGroup]  # None: the default group
     rank: int
@@ -49,9 +51,11 @@ class Mesh:
         return (seed * 0x9E3779B97F4A7C15 + self.rank * 0xBF58476D1CE4E5B9) & _M63
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        spans.add("parallel.bytes", t.numel() * t.element_size())
         return distributed.all_reduce(t, op, self.group)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        spans.add("parallel.bytes", t.numel() * t.element_size())
         return distributed.all_gather(t, self.group)
 
     def from_rank0(self, value: int) -> int:

@@ -6,6 +6,7 @@ lib/src/itm.hpp:94-254 (dispatch on problem type / solver type / meta mode).
 
 from __future__ import annotations
 
+from baryonyx_torch import spans
 from baryonyx_torch.core.context import Context
 from baryonyx_torch.core.model import Problem, RawProblem
 from baryonyx_torch.core.params import ModeType, PreprocessorOptions
@@ -25,20 +26,31 @@ def _prepare(ctx: Context, raw: RawProblem) -> Problem:
 
 def solve(ctx: Context, raw: RawProblem, device: DeviceLike = None) -> Result:
     """reference: lpcore.cpp:88-98. Runs on CUDA unless ``device="cpu"``;
-    raises when CUDA is missing and no device is given."""
-    dev = resolve_device(device)
-    if ctx.start_cb:
-        ctx.start_cb(ctx.parameters)
-    ctx.parameters = ctx.parameters.validated()
-    pb = _prepare(ctx, raw)
-    from baryonyx_torch.solver.solve import solve_compiled
+    raises when CUDA is missing and no device is given. The span
+    ``entry.solver_init`` runs from here to the start of the budget's
+    clock."""
+    with spans.span("entry.solver_init"):
+        dev = resolve_device(device)
+        if ctx.start_cb:
+            ctx.start_cb(ctx.parameters)
+        ctx.parameters = ctx.parameters.validated()
+        with spans.span("entry.preprocess"):
+            pb = _prepare(ctx, raw)
+        from baryonyx_torch.solver.solve import solve_compiled
 
-    return solve_compiled(ctx, pb, device=dev)
+        return solve_compiled(ctx, pb, device=dev)
 
 
 def optimize(ctx: Context, raw: RawProblem, device: DeviceLike = None) -> Result:
     """reference: lpcore.cpp:100-132. Runs on CUDA unless
-    ``device="cpu"``; raises when CUDA is missing and no device is given."""
+    ``device="cpu"``; raises when CUDA is missing and no device is given.
+    The span ``entry.solver_init`` runs from here to the start of the
+    budget's clock (the first one, in a meta mode)."""
+    with spans.span("entry.solver_init"):
+        return _optimize(ctx, raw, device)
+
+
+def _optimize(ctx: Context, raw: RawProblem, device: DeviceLike) -> Result:
     dev = resolve_device(device)
     if ctx.start_cb:
         ctx.start_cb(ctx.parameters)
@@ -59,7 +71,8 @@ def optimize(ctx: Context, raw: RawProblem, device: DeviceLike = None) -> Result
 
         return manual_optimize(ctx, raw, device=dev)
 
-    pb = _prepare(ctx, raw)
+    with spans.span("entry.preprocess"):
+        pb = _prepare(ctx, raw)
     from baryonyx_torch.solver.optimize import optimize_compiled
 
     return optimize_compiled(ctx, pb, device=dev)

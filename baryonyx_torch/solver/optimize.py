@@ -60,6 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from baryonyx_torch import spans
 from baryonyx_torch.checkpoint import load_population, save_population
 from baryonyx_torch.core.context import Context
 from baryonyx_torch.core.contracts import validate_replica_state
@@ -484,7 +485,8 @@ def evolve(ev: EvolveInputs, state: OptState, n_steps: int) -> OptState:
         flip_delta = ev.mesh.all_reduce(flip_delta, "sum")
     state = state._replace(flips=FLIP_DECAY * flips0 + flip_delta)
     if ev.mesh is not None:
-        state = state._replace(pop=exchange_top_k(ev, state))
+        with spans.loop("optimize.exchange"):
+            state = state._replace(pop=exchange_top_k(ev, state))
     return state
 
 
@@ -620,34 +622,45 @@ def _budget_loop(
     length, a checkpoint, the end of the budget) from its own clock, and
     ``fleet_fn(stats, decisions)`` — the one collective of the per-chunk
     fetch — gives every rank the fleet's stats and rank 0's decisions;
-    no other clock reading steers the loop."""
+    no other clock reading steers the loop.
+
+    Under a profiler a chunk up to its decisions is the span
+    ``optimize.chunk`` (its steps summed), with the children
+    ``optimize.enqueue`` (``run_evolve``), ``optimize.fetch`` (the host
+    blocked on the device) and ``optimize.fleet`` (the wait for the
+    slowest rank); the progress callback and what follows it are not in
+    it."""
     best_lb = float("-inf")  # bound_fn orientation: higher is tighter
     best_seen = (np.inf, np.inf)  # (remaining, value) of the pool head
     stagnant = 0
     try:
         while True:
-            t_chunk = time.monotonic()
-            state = run_evolve(state, chunk)
-            # one small fetch per chunk synchronizes with the device
-            stats = stats_fn(state)
-            now = time.monotonic()
-            # sweep-budget mode (no time limit) keeps the chunk FIXED so
-            # runs are reproducible
-            next_chunk = chunk
-            if time_limit != float("inf"):
-                dt_chunk = now - t_chunk
-                if dt_chunk < 0.35 and chunk < (1 << 14):
-                    next_chunk = min(chunk * 4, 1 << 14)
-                elif dt_chunk > 1.5 and chunk > 1:
-                    next_chunk = max(chunk // 2, 1)
-            decisions = (
-                next_chunk,
-                bool(params.checkpoint_path)
-                and now - last_ckpt >= params.checkpoint_every,
-                now - budget_t0 >= time_limit,
-            )
-            if fleet_fn is not None:
-                stats, decisions = fleet_fn(stats, decisions)
+            with spans.loop("optimize.chunk", chunk):
+                t_chunk = time.monotonic()
+                with spans.loop("optimize.enqueue"):
+                    state = run_evolve(state, chunk)
+                # one small fetch per chunk synchronizes with the device
+                with spans.loop("optimize.fetch"):
+                    stats = stats_fn(state)
+                now = time.monotonic()
+                # sweep-budget mode (no time limit) keeps the chunk FIXED so
+                # runs are reproducible
+                next_chunk = chunk
+                if time_limit != float("inf"):
+                    dt_chunk = now - t_chunk
+                    if dt_chunk < 0.35 and chunk < (1 << 14):
+                        next_chunk = min(chunk * 4, 1 << 14)
+                    elif dt_chunk > 1.5 and chunk > 1:
+                        next_chunk = max(chunk // 2, 1)
+                decisions = (
+                    next_chunk,
+                    bool(params.checkpoint_path)
+                    and now - last_ckpt >= params.checkpoint_every,
+                    now - budget_t0 >= time_limit,
+                )
+                if fleet_fn is not None:
+                    with spans.loop("optimize.fleet"):
+                        stats, decisions = fleet_fn(stats, decisions)
             chunk, ckpt_due, out_of_time = decisions
             # cataclysm on stagnation: when the pool head stops improving
             # for several chunks, keep the elite fifth and re-randomize
@@ -753,7 +766,8 @@ def optimize_compiled(
 
     ret = Result(method="optimize")
     n = len(pb.vars.values)
-    constraints = make_merged_constraints(ctx, pb)
+    with spans.span("entry.merge"):
+        constraints = make_merged_constraints(ctx, pb)
 
     if not constraints or n == 0:
         ret.status = ResultStatus.success
@@ -798,10 +812,11 @@ def optimize_compiled(
     gen.manual_seed(mesh.seed(seed) if mesh is not None else seed)
 
     try:
-        cp = compile_problem(
-            constraints, n, dtype=dtype, qelements=pb.objective.qelements,
-            device=dev,
-        )
+        with spans.span("entry.compile"):
+            cp = compile_problem(
+                constraints, n, dtype=dtype, qelements=pb.objective.qelements,
+                device=dev,
+            )
     except InfeasibleConstraintError as e:
         ctx.warning("  - infeasible at compile time: {}\n", e)
         ret.status = ResultStatus.limit_reached
@@ -828,9 +843,10 @@ def optimize_compiled(
     cost_orig = np.pad(cost_orig_real, (0, pad))
     cost_norm = np.pad(cost_norm_real, (0, pad))
 
-    R, block_size = replica_batch(
-        ctx, cp, params, dev, grow=hp_vectors is None, n_ranks=n_ranks
-    )
+    with spans.span("entry.replicas"):
+        R, block_size = replica_batch(
+            ctx, cp, params, dev, grow=hp_vectors is None, n_ranks=n_ranks
+        )
     R_local = R // n_ranks
     # past the device budget at 128 replicas per rank, shard the
     # constraint rows over the ranks (0/1 and ±1 rows, linear costs);
@@ -880,25 +896,26 @@ def optimize_compiled(
         rem = int(np.sum((act < _rmin) | (act > _rmax)))
         return value, rem
 
-    pop_x, pop_val, pop_rem = init_population_host(
-        params, cost_orig_real, constraints, minimize, rng, P_size, evaluate
-    )
-    pop_x = np.pad(pop_x, ((0, 0), (0, pad)))
-    # sort best-first on the host (same key as sort_population)
-    order0 = np.lexsort((pop_val if minimize else -pop_val, pop_rem))
-    pop_x, pop_val, pop_rem = pop_x[order0], pop_val[order0], pop_rem[order0]
-    # padded variables carry zero hash weight so stray bits there (e.g.
-    # from mutation) cannot defeat the population dedup
-    hw_np = make_hash_weights(cp.n, seed)
-    hw_np[n:] = 0
-    hw = torch.as_tensor(hw_np.astype(np.int64), device=dev)
-    pop_x_t = torch.as_tensor(pop_x, dtype=torch.int32, device=dev)
-    pop = Population(
-        x=pop_x_t,
-        value=torch.as_tensor(pop_val, dtype=dtype, device=dev),
-        remaining=torch.as_tensor(pop_rem, dtype=torch.int32, device=dev),
-        hash=hash_x(pop_x_t, hw),
-    )
+    with spans.span("entry.population"):
+        pop_x, pop_val, pop_rem = init_population_host(
+            params, cost_orig_real, constraints, minimize, rng, P_size, evaluate
+        )
+        pop_x = np.pad(pop_x, ((0, 0), (0, pad)))
+        # sort best-first on the host (same key as sort_population)
+        order0 = np.lexsort((pop_val if minimize else -pop_val, pop_rem))
+        pop_x, pop_val, pop_rem = pop_x[order0], pop_val[order0], pop_rem[order0]
+        # padded variables carry zero hash weight so stray bits there (e.g.
+        # from mutation) cannot defeat the population dedup
+        hw_np = make_hash_weights(cp.n, seed)
+        hw_np[n:] = 0
+        hw = torch.as_tensor(hw_np.astype(np.int64), device=dev)
+        pop_x_t = torch.as_tensor(pop_x, dtype=torch.int32, device=dev)
+        pop = Population(
+            x=pop_x_t,
+            value=torch.as_tensor(pop_val, dtype=dtype, device=dev),
+            remaining=torch.as_tensor(pop_rem, dtype=torch.int32, device=dev),
+            hash=hash_x(pop_x_t, hw),
+        )
 
     if params.checkpoint_path and os.path.exists(params.checkpoint_path):
         try:
@@ -1014,90 +1031,91 @@ def optimize_compiled(
                 # rounded to the solver's type, as the sweep computes with it
                 hp[k] = torch.as_tensor(hp_r[k][sl], dtype=dtype, device=dev)
 
-    # replica init: a quarter of the replicas start from a zero x plus
-    # the reinit mutation, like the reference's optimize threads
-    # (itm-optimizer-common.hpp:627,661,528-554); the rest draw diverse
-    # starting points from the population
-    x0_np = np.zeros((R, cp.n), np.int32)
-    n_pop_draw = R - max(R // 4, min(64, R // 2))
-    if n_pop_draw:
-        init_idx = np.minimum(
-            np.abs(rng.normal(0, 0.5, n_pop_draw)) * P_size, P_size - 1
-        ).astype(np.int32)
-        x0_np[:n_pop_draw] = pop_x[init_idx]
-    if hp["mut_enabled"]:
-        var_p = np.clip(
-            np.abs(
-                rng.normal(
-                    params.init_mutation_variable_mean,
-                    params.init_mutation_variable_stddev,
-                    (R, 1),
-                )
-            ),
-            1e-7,
-            0.999,
+    with spans.span("entry.replica_starts"):
+        # replica init: a quarter of the replicas start from a zero x plus
+        # the reinit mutation, like the reference's optimize threads
+        # (itm-optimizer-common.hpp:627,661,528-554); the rest draw diverse
+        # starting points from the population
+        x0_np = np.zeros((R, cp.n), np.int32)
+        n_pop_draw = R - max(R // 4, min(64, R // 2))
+        if n_pop_draw:
+            init_idx = np.minimum(
+                np.abs(rng.normal(0, 0.5, n_pop_draw)) * P_size, P_size - 1
+            ).astype(np.int32)
+            x0_np[:n_pop_draw] = pop_x[init_idx]
+        if hp["mut_enabled"]:
+            var_p = np.clip(
+                np.abs(
+                    rng.normal(
+                        params.init_mutation_variable_mean,
+                        params.init_mutation_variable_stddev,
+                        (R, 1),
+                    )
+                ),
+                1e-7,
+                0.999,
+            )
+            val_p = np.clip(
+                np.abs(
+                    rng.normal(
+                        params.init_mutation_value_mean,
+                        params.init_mutation_value_stddev,
+                        (R, 1),
+                    )
+                ),
+                0.0,
+                1.0,
+            )
+            mut = rng.random((R, cp.n)) < var_p
+            x0_np = np.where(mut, (rng.random((R, cp.n)) < val_p), x0_np).astype(
+                np.int32
+            )
+            x0_np[:, n:] = 0
+        if "init_policy_random" in hp_r:
+            # per-replica init policy: probability of a Bernoulli(0.5) start
+            # instead of the population/zero start (reference semantics of
+            # init_policy_random, itm-common.hpp:269-282)
+            use_rand = rng.random(R) < hp_r["init_policy_random"]
+            rand_x = (rng.random((R, cp.n)) < 0.5).astype(np.int32)
+            rand_x[:, n:] = 0
+            x0_np = np.where(use_rand[:, None], rand_x, x0_np)
+        x0 = torch.as_tensor(x0_np[sl].T.copy(), device=dev)  # int32[n, R_local]
+        # first ladder rung (reference reinit's first call bumps kappa_append
+        # before the first inner run), from each replica's kappa_min
+        append0 = params.init_kappa_improve_start + params.init_kappa_improve_increase
+        kmin0 = hp_r["kappa_min"][sl] if "kappa_min" in hp_r else params.kappa_min
+        kappa0 = kmin0 + (params.kappa_max - kmin0) * (
+            append0 if append0 < params.init_kappa_improve_stop else 0.0
         )
-        val_p = np.clip(
-            np.abs(
-                rng.normal(
-                    params.init_mutation_value_mean,
-                    params.init_mutation_value_stddev,
-                    (R, 1),
-                )
-            ),
-            0.0,
-            1.0,
+        order_code = common.ORDER_CODES.get(params.order, 0)
+
+        def full(v, dt):
+            return torch.as_tensor(v, dtype=dt, device=dev).expand(R_local).contiguous()
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        rs = ReplicaState(
+            x=x0,
+            P=zeros(cp.m, cp.Kr, R_local),
+            pi=zeros(cp.m, R_local),
+            S=zeros(cp.n, R_local),
+            viol=violated_mask(cp, x0),
+            kappa=full(kappa0, dtype),
+            kappa_start=full(kappa0, dtype),
+            kappa_append=full(append0, dtype),
+            iter_i=full(0, torch.int32),
+            phase=full(0, torch.int32),
+            push_idx=full(0, torch.int32),
+            best_remaining=full(INT_MAX, torch.int32),
+            restarts=full(0, torch.int32),
+            best_value=full(float("inf"), dtype),
         )
-        mut = rng.random((R, cp.n)) < var_p
-        x0_np = np.where(mut, (rng.random((R, cp.n)) < val_p), x0_np).astype(
-            np.int32
+        state = OptState(
+            rs, pop, gen,
+            torch.tensor(order_code, dtype=torch.int32, device=dev),
+            0, torch.zeros((cp.n,), dtype=torch.float32, device=dev),
         )
-        x0_np[:, n:] = 0
-    if "init_policy_random" in hp_r:
-        # per-replica init policy: probability of a Bernoulli(0.5) start
-        # instead of the population/zero start (reference semantics of
-        # init_policy_random, itm-common.hpp:269-282)
-        use_rand = rng.random(R) < hp_r["init_policy_random"]
-        rand_x = (rng.random((R, cp.n)) < 0.5).astype(np.int32)
-        rand_x[:, n:] = 0
-        x0_np = np.where(use_rand[:, None], rand_x, x0_np)
-    x0 = torch.as_tensor(x0_np[sl].T.copy(), device=dev)  # int32[n, R_local]
-    # first ladder rung (reference reinit's first call bumps kappa_append
-    # before the first inner run), from each replica's kappa_min
-    append0 = params.init_kappa_improve_start + params.init_kappa_improve_increase
-    kmin0 = hp_r["kappa_min"][sl] if "kappa_min" in hp_r else params.kappa_min
-    kappa0 = kmin0 + (params.kappa_max - kmin0) * (
-        append0 if append0 < params.init_kappa_improve_stop else 0.0
-    )
-    order_code = common.ORDER_CODES.get(params.order, 0)
-
-    def full(v, dt):
-        return torch.as_tensor(v, dtype=dt, device=dev).expand(R_local).contiguous()
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    rs = ReplicaState(
-        x=x0,
-        P=zeros(cp.m, cp.Kr, R_local),
-        pi=zeros(cp.m, R_local),
-        S=zeros(cp.n, R_local),
-        viol=violated_mask(cp, x0),
-        kappa=full(kappa0, dtype),
-        kappa_start=full(kappa0, dtype),
-        kappa_append=full(append0, dtype),
-        iter_i=full(0, torch.int32),
-        phase=full(0, torch.int32),
-        push_idx=full(0, torch.int32),
-        best_remaining=full(INT_MAX, torch.int32),
-        restarts=full(0, torch.int32),
-        best_value=full(float("inf"), dtype),
-    )
-    state = OptState(
-        rs, pop, gen,
-        torch.tensor(order_code, dtype=torch.int32, device=dev),
-        0, torch.zeros((cp.n,), dtype=torch.float32, device=dev),
-    )
     co = torch.as_tensor(cost_orig, dtype=dtype, device=dev)
     ev = EvolveInputs(
         cp=cp,
@@ -1144,11 +1162,13 @@ def optimize_compiled(
     last_ckpt = time.monotonic()
     # the kernels build at first use: keep that out of the time budget
     if dev.type == "cuda":
-        if cp.has_z:
-            if cp.Wdp:
-                zs.dp_select_kernel.load()
-        elif fused_sweep_applies(cp, R_local, dtype, dev, use_random):
-            pw.psweep_kernel.load()
+        with spans.span("entry.kernel_load"):
+            if cp.has_z:
+                if cp.Wdp:
+                    zs.dp_select_kernel.load()
+            elif fused_sweep_applies(cp, R_local, dtype, dev, use_random):
+                pw.psweep_kernel.load()
+    spans.end("entry.solver_init")
     budget_t0 = time.monotonic()
     chunk = max(1, params.chunk_size)
 

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from baryonyx_torch import spans
 from baryonyx_torch.solver import common
 
 _M32 = 0xFFFFFFFF
@@ -171,12 +172,13 @@ def init_population_host(
         q = max(pop_size // 4, 1)
         cand = pop_size - q
         ok = True
-        for t in range(q):
-            g = greedy_cover(c_orig, constraints, rng, noise=0.05 + 0.6 * t / q)
-            if g is None:
-                ok = False
-                break
-            xs[cand + t] = g
+        with spans.span("entry.greedy_cover"):
+            for t in range(q):
+                g = greedy_cover(c_orig, constraints, rng, noise=0.05 + 0.6 * t / q)
+                if g is None:
+                    ok = False
+                    break
+                xs[cand + t] = g
         if ok:
             greedy_hi = cand
 

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from baryonyx_torch import spans
 from baryonyx_torch.core.context import Context
 from baryonyx_torch.core.errors import InfeasibleConstraintError
 from baryonyx_torch.core.model import ObjectiveType, Problem
@@ -260,10 +261,11 @@ def make_hyper(params: SolverParameters, cost_norm: np.ndarray, dtype) -> dict:
 
 def _read(st: DeviceState):
     """(remaining, kappa) of the state on the host: the one read a sweep
-    costs the host loop."""
-    rem, kappa = torch.stack(
-        [st.remaining[0].to(torch.float64), st.kappa[0].to(torch.float64)]
-    ).tolist()
+    costs the host loop (under a profiler, the span ``solve.read``)."""
+    with spans.loop("solve.read"):
+        rem, kappa = torch.stack(
+            [st.remaining[0].to(torch.float64), st.kappa[0].to(torch.float64)]
+        ).tolist()
     return int(rem), kappa
 
 
@@ -276,11 +278,12 @@ def run_chunk(
     kappa_max / global limit (reference: itm-solver-common.hpp:135-166)."""
     start_loop = st.loop
     while st.stop_reason == STOP_RUNNING and st.loop - start_loop < n_iters:
-        st = _step(
-            cp, cost_norm, cost_orig, cost_constant, st, hp, minimize,
-            block_size, None, anneal_counter=st.loop,
-            random_solver=random_solver, order_policy=order_policy,
-        )
+        with spans.loop("solve.sweep"):
+            st = _step(
+                cp, cost_norm, cost_orig, cost_constant, st, hp, minimize,
+                block_size, None, anneal_counter=st.loop,
+                random_solver=random_solver, order_policy=order_policy,
+            )
         st = st._replace(stop_reason=_stop_reason(st, hp, hp["limit"]))
     return st
 
@@ -303,19 +306,21 @@ def run_push_round(
 ) -> DeviceState:
     """One objective-amplified sweep + up to ``push_iters`` normal sweeps
     (reference: itm-solver-common.hpp:171-213)."""
-    st = _step(
-        cp, cost_norm, cost_orig, cost_constant, st, hp, minimize, block_size,
-        hp["pushing_objective_amplifier"], random_solver=random_solver,
-        order_policy=order_policy,
-    )
+    with spans.loop("solve.sweep"):
+        st = _step(
+            cp, cost_norm, cost_orig, cost_constant, st, hp, minimize, block_size,
+            hp["pushing_objective_amplifier"], random_solver=random_solver,
+            order_policy=order_policy,
+        )
     st = st._replace(stop_reason=STOP_RUNNING)
     it = 0
     while it < push_iters and st.stop_reason == STOP_RUNNING:
-        st = _step(
-            cp, cost_norm, cost_orig, cost_constant, st, hp, minimize,
-            block_size, None, anneal_counter=it, random_solver=random_solver,
-            order_policy=order_policy,
-        )
+        with spans.loop("solve.sweep"):
+            st = _step(
+                cp, cost_norm, cost_orig, cost_constant, st, hp, minimize,
+                block_size, None, anneal_counter=it, random_solver=random_solver,
+                order_policy=order_policy,
+            )
         st = st._replace(stop_reason=_stop_reason(st, hp, None))
         it += 1
     return st
@@ -336,7 +341,8 @@ def solve_compiled(
 
     ret = Result(method="solve")
     n = len(pb.vars.values)
-    constraints = make_merged_constraints(ctx, pb)
+    with spans.span("entry.merge"):
+        constraints = make_merged_constraints(ctx, pb)
 
     if not constraints or n == 0:
         ret.status = ResultStatus.success
@@ -368,10 +374,11 @@ def solve_compiled(
     gen.manual_seed(seed)
 
     try:
-        cp = compile_problem(
-            constraints, n, dtype=dtype, qelements=pb.objective.qelements,
-            device=dev,
-        )
+        with spans.span("entry.compile"):
+            cp = compile_problem(
+                constraints, n, dtype=dtype, qelements=pb.objective.qelements,
+                device=dev,
+            )
     except InfeasibleConstraintError as e:
         # a provably-unsatisfiable row: report what the solver loop would
         # have reported after exhausting its budget (row stays violated)
@@ -401,15 +408,15 @@ def solve_compiled(
     cost_orig = np.pad(cost_orig_real, (0, pad))
     cost_norm = np.pad(cost_norm_real, (0, pad))
 
-    x0 = np.pad(
-        common.initial_x(params, cost_orig_real, constraints, minimize, rng),
-        (0, pad),
-    )
-
     order_code = common.ORDER_CODES.get(params.order, 0)
     if params.order == ConstraintOrder.cycle:
         order_code = 0
-    st = make_initial_state(cp, x0, params, gen, dtype, order_code, minimize)
+    with spans.span("entry.population"):
+        x0 = np.pad(
+            common.initial_x(params, cost_orig_real, constraints, minimize, rng),
+            (0, pad),
+        )
+        st = make_initial_state(cp, x0, params, gen, dtype, order_code, minimize)
 
     cn = torch.as_tensor(cost_norm, dtype=dtype, device=dev)
     co = torch.as_tensor(cost_orig, dtype=dtype, device=dev)
@@ -432,7 +439,9 @@ def solve_compiled(
     # this instance needs is built and loaded; ret.duration keeps the
     # reference semantics of spanning the whole solve from entry.
     if dev.type == "cuda" and cp.has_z and cp.Wdp:
-        zs.dp_select_kernel.load()
+        with spans.span("entry.kernel_load"):
+            zs.dp_select_kernel.load()
+    spans.end("entry.solver_init")
     budget_t0 = time.monotonic()
 
     def time_left() -> bool:
