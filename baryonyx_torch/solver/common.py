@@ -343,7 +343,8 @@ def make_order(
                 shuf,  # pi_sign_change (processes all rows)
             ]
         )
-        order = branches[order_code.long()]
+        # index_select: indexing by a 0-dim tensor would read it on the host
+        order = branches.index_select(0, order_code.long().reshape(1))[0]
     pad = torch.full((m_pad - m,), m, dtype=torch.int32, device=dev)
     return torch.cat([order, pad])
 

@@ -41,7 +41,10 @@ A step never waits for the device: every per-step quantity (the schedule,
 the row count, the order code, the tie-noise seed) stays on the device
 (the general sweep walks every block of the order instead of reading the
 row count),
-and the host loop only fetches one small stats vector per chunk.
+and the host loop only fetches one small stats vector per chunk. On a
+CUDA device, where the step runs the fused sweep and holds no collective,
+the work before and after the sweep replays from two CUDA graphs
+(``StepGraphs``), and the sweep itself stays a Python call.
 
 Deviations from the reference, on purpose:
 - the row schedule is shared across replicas; the state-dependent ordering
@@ -52,6 +55,7 @@ Deviations from the reference, on purpose:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import NamedTuple, Optional, Tuple
@@ -179,6 +183,9 @@ class EvolveInputs(NamedTuple):
     mesh: Optional[Mesh] = None
     # the ablation hooks switched on (_ablate); empty in a real run
     ablate: frozenset = frozenset()
+    # the steps' CUDA graphs where they apply (step_graphs_apply), which
+    # ``evolve`` runs its steps through
+    graphs: Optional["StepGraphs"] = None
 
 
 def fused_sweep_applies(
@@ -191,16 +198,76 @@ def fused_sweep_applies(
     return not random_solver and pw.supports(cp, R, dtype, device)
 
 
+def sweep_kind(ev: EvolveInputs, R: int, dtype, device) -> str:
+    """Which sweep ``one_step`` runs: "z" (ops/zsweep.py, instances with
+    integer factors), "fused" (ops/psweep.py; a quadratic objective only
+    with its dense matrix) or "general" (ops/sweep.py)."""
+    if ev.cp.has_z:
+        return "z"
+    if (ev.quad_mat is not None or not ev.cp.has_quad) and fused_sweep_applies(
+        ev.cp, R, dtype, device, ev.random_solver
+    ):
+        return "fused"
+    return "general"
+
+
+def step_graphs_apply(ev: EvolveInputs, R: int, dtype, device) -> bool:
+    """Does ``optimize_compiled`` replay the steps' glue from CUDA graphs
+    (``StepGraphs``)? On a CUDA device, where the step runs the fused
+    sweep and holds no collective (the ``cycle`` order over a process
+    group meets the ranks in every step)."""
+    return (
+        torch.device(device).type == "cuda"
+        and sweep_kind(ev, R, dtype, device) == "fused"
+        and not (ev.hp["use_cycle"] and ev.mesh is not None)
+    )
+
+
+class StepPre(NamedTuple):
+    """What ``_step_pre`` hands the sweep and ``_step_post``."""
+
+    is_push: torch.Tensor  # bool[R]
+    kappa_eff: torch.Tensor  # f[R]
+    amp: torch.Tensor  # f[R]
+    sched: torch.Tensor  # bool[m, R]
+    order2: torch.Tensor  # int32[mp]
+    # the fused sweep's alone: its row count (an int32 scalar on the
+    # device, or m) and its tie-noise seed int32[2]
+    n_rows: object = None
+    seed: Optional[torch.Tensor] = None
+
+
+class SweepOut(NamedTuple):
+    x: torch.Tensor  # int32[n, R]
+    P: torch.Tensor  # f[m, Kr, R]
+    pi: torch.Tensor  # f[m, R]
+    S: torch.Tensor  # f[n, R]
+    viol: torch.Tensor  # bool[m, R]
+    remaining: torch.Tensor  # int32[R]
+
+
 def one_step(ev: EvolveInputs, state: OptState) -> OptState:
     """Every replica does one sweep plus its state-machine transition;
-    finished replicas report to the population and restart."""
-    cp, hp, minimize = ev.cp, ev.hp, ev.minimize
+    finished replicas report to the population and restart. The step is
+    three parts: ``_step_pre`` (the schedule, the order and the draws the
+    sweep reads), the sweep (``_step_sweep``) and ``_step_post`` (the
+    transitions, the population, the restarts); ``StepGraphs`` replays the
+    first and the last from CUDA graphs."""
+    pre = _step_pre(ev, state)
+    return _step_post(ev, state, pre, _step_sweep(ev, state, pre))
+
+
+def _step_pre(ev: EvolveInputs, state: OptState) -> StepPre:
+    """The step up to its sweep: the effective kappa and the objective
+    amplifier, the row order, the schedule with its dither draw, the
+    compaction of the scheduled rows and, for the fused sweep, its row
+    count and its seed draw."""
+    cp, hp = ev.cp, ev.hp
     rs = state.replicas
     gen = state.gen
-    m, n = cp.m, cp.n
+    m = cp.m
     R = rs.kappa.shape[0]
     dev = rs.P.device
-    dtype = rs.P.dtype
     B = ev.block_size
     mp = ((m + B - 1) // B) * B
 
@@ -247,7 +314,24 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
         ]
         order2 = order[torch.argsort((~padded).to(torch.int8), stable=True)]
 
-    if cp.has_z:
+    pre = StepPre(is_push, kappa_eff, amp, sched, order2)
+    if sweep_kind(ev, R, rs.P.dtype, dev) != "fused":
+        return pre
+    n_rows = m if padded is None else padded.sum(dtype=torch.int32)
+    seed = torch.randint(
+        0, INT_MAX, (2,), generator=gen, device=dev, dtype=torch.int32
+    )
+    return pre._replace(n_rows=n_rows, seed=seed)
+
+
+def _step_sweep(ev: EvolveInputs, state: OptState, pre: StepPre) -> SweepOut:
+    """The step's sweep. The fused one is called through the module
+    (``pw.psweep``), once per step."""
+    cp, hp, minimize = ev.cp, ev.hp, ev.minimize
+    rs = state.replicas
+    B = ev.block_size
+    kind = sweep_kind(ev, rs.kappa.shape[0], rs.P.dtype, rs.P.device)
+    if kind == "z":
         if ev.random_solver:
             # the reference's dispatch has no random solver for Z problems
             # (itm.hpp:181-200 raises internal_error)
@@ -255,35 +339,44 @@ def one_step(ev: EvolveInputs, state: OptState) -> OptState:
         # the Z sweep walks every block (no row count read on the host)
         # and keeps no column sums across sweeps
         x, P, pi, viol, remaining = zs.z_sweep(
-            cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
-            hp["delta"], hp["theta"], gen, amp, minimize=minimize,
-            block_size=B, quad_fac=ev.quad_fac,
+            cp, rs.x, rs.P, rs.pi, ev.cost_norm, pre.sched, pre.order2,
+            pre.kappa_eff, hp["delta"], hp["theta"], state.gen, pre.amp,
+            minimize=minimize, block_size=B, quad_fac=ev.quad_fac,
         )
-        S = rs.S
-    elif not (
-        # the fused sweep reads quadratic costs from the dense matrix only
-        (ev.quad_mat is not None or not cp.has_quad)
-        and fused_sweep_applies(cp, R, dtype, dev, ev.random_solver)
-    ):
+        return SweepOut(x, P, pi, rs.S, viol, remaining)
+    if kind == "general":
         # the general sweep, over every block of the order (no row count
         # read on the host)
-        x, P, pi, S, viol, remaining = sweep(
-            cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
-            hp["delta"], hp["theta"], gen, amp, minimize=minimize,
-            block_size=B, random_solver=ev.random_solver,
+        return SweepOut(*sweep(
+            cp, rs.x, rs.P, rs.pi, ev.cost_norm, pre.sched, pre.order2,
+            pre.kappa_eff, hp["delta"], hp["theta"], state.gen, pre.amp,
+            minimize=minimize, block_size=B, random_solver=ev.random_solver,
             quad_fac=ev.quad_fac, S=rs.S, S_fresh=(state.sweeps % 16) != 0,
-        )
-    else:
-        n_rows = m if padded is None else padded.sum(dtype=torch.int32)
-        seed = torch.randint(
-            0, INT_MAX, (2,), generator=gen, device=dev, dtype=torch.int32
-        )
-        x, P, pi, S, viol, remaining = pw.psweep(
-            cp, rs.x, rs.P, rs.pi, ev.cost_norm, sched, order2, kappa_eff,
-            hp["delta"], hp["theta"], seed, amp, n_rows=n_rows,
-            minimize=minimize, block_size=B, quad_mat=ev.quad_mat, S=rs.S,
-            S_fresh=(state.sweeps % 16) != 0,
-        )
+        ))
+    return SweepOut(*pw.psweep(
+        cp, rs.x, rs.P, rs.pi, ev.cost_norm, pre.sched, pre.order2,
+        pre.kappa_eff, hp["delta"], hp["theta"], pre.seed, pre.amp,
+        n_rows=pre.n_rows, minimize=minimize, block_size=B,
+        quad_mat=ev.quad_mat, S=rs.S, S_fresh=(state.sweeps % 16) != 0,
+    ))
+
+
+def _step_post(
+    ev: EvolveInputs, state: OptState, pre: StepPre, out: SweepOut
+) -> OptState:
+    """The step after its sweep: the objective values and the flip
+    counts, the anneal and push transitions, the population's inserts,
+    the restarts' crossover and mutation, the phase and kappa updates,
+    the cycle order's code and the restarting replicas' violated sets."""
+    cp, hp, minimize = ev.cp, ev.hp, ev.minimize
+    rs = state.replicas
+    gen = state.gen
+    n = cp.n
+    R = rs.kappa.shape[0]
+    dev = rs.P.device
+    dtype = rs.P.dtype
+    is_push = pre.is_push
+    x, P, pi, S, viol, remaining = out
 
     if "value" in ev.ablate:
         value = torch.zeros((R,), dtype=dtype, device=dev)
@@ -468,6 +561,165 @@ def quad_value(quad_terms, x: torch.Tensor, dtype) -> torch.Tensor:
     return qfv @ (x[qa] * x[qb]).to(dtype)
 
 
+def _state_tensors(st: OptState) -> list:
+    """The tensors of a state, in one fixed order."""
+    return [*st.replicas, *st.pop, st.order_code, st.flips]
+
+
+def _with_tensors(st: OptState, ts: list) -> OptState:
+    nr, npop = len(st.replicas), len(st.pop)
+    return st._replace(
+        replicas=ReplicaState(*ts[:nr]), pop=Population(*ts[nr:nr + npop]),
+        order_code=ts[-2], flips=ts[-1],
+    )
+
+
+class CudaCapture:
+    """CUDA graphs over one random stream, captured on a side stream of
+    their own into one memory pool (``StepGraphs``' device part)."""
+
+    def __init__(self, gen: torch.Generator, device: torch.device) -> None:
+        self.gen = gen
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: list = []
+
+    @contextlib.contextmanager
+    def side_stream(self):
+        """Eager work on the capture stream, ordered after and before the
+        current stream's (a graph's warm-up)."""
+        main = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            yield
+        main.wait_stream(self.stream)
+
+    def __call__(self, fn):
+        """``fn``'s work captured, not run: (fn's outputs, the graph's
+        replay). Each replay takes the random stream's draws where they
+        stand, as eager code would."""
+        g = torch.cuda.CUDAGraph()
+        g.register_generator_state(self.gen)
+        # thread_local: a process group's watchdog thread queries its
+        # events meanwhile, which a global capture would count against it
+        with torch.cuda.graph(g, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+        self.graphs.append(g)
+        return out, g.replay
+
+    def close(self) -> None:
+        for g in self.graphs:
+            g.reset()
+        self.graphs.clear()
+
+
+class StepGraphs:
+    """One evolution step's glue replayed from two CUDA graphs around the
+    eager sweep: ``_step_pre`` and ``_step_post`` are captured once over
+    buffers that hold the state; each step then replays the first, calls
+    the fused sweep from Python (``_step_sweep``), copies its outputs into
+    the second's inputs and replays it, whose tail copies the next state
+    into the buffers. That is two graph launches and the sweep's own
+    (about 20) in place of about 256 launches from Python. The sweep gets
+    copies of the schedule, the order and the row count, which a wrapper of
+    ``pw.psweep`` may keep across steps. Registered with both graphs, the
+    state's random stream takes the offsets it takes in ``one_step``: the
+    steps' results are ``one_step``'s bit for bit.
+
+    ``run`` builds at its first step, which runs eagerly on the side stream
+    (a graph's warm-up) before the captures. At every ``run`` a state
+    tensor that is not its buffer (a new population from the cataclysm or
+    the exchange, the decayed flip counts) is copied into its buffer; the
+    first ``run`` takes the state's own tensors as the buffers. The state
+    ``run`` returns holds the buffers, which the next ``run`` updates in
+    place. ``close`` releases the graphs and their memory pool."""
+
+    capture_cls = CudaCapture
+
+    def __init__(self, ev: EvolveInputs) -> None:
+        self.ev = ev
+        self.bufs: Optional[list] = None
+        self.capture = None
+        self.pre: Optional[StepPre] = None
+        self.sweep_in: Optional[SweepOut] = None
+        self.replay_pre = self.replay_post = None
+
+    def run(self, state: OptState, n_steps: int) -> OptState:
+        """``n_steps`` steps from ``state``."""
+        state = self._adopt(state)
+        done = 0
+        if self.replay_post is None and n_steps:
+            state = self._build(state)
+            done = 1
+        for _ in range(done, n_steps):
+            self.replay_pre()
+            pre = self.pre
+            out = _step_sweep(self.ev, state, pre._replace(
+                sched=pre.sched.clone(), order2=pre.order2.clone(),
+                n_rows=(pre.n_rows.clone() if isinstance(pre.n_rows, torch.Tensor)
+                        else pre.n_rows),
+            ))
+            for src, dst in zip(out, self.sweep_in):
+                if src is not dst:
+                    dst.copy_(src)
+            self.replay_post()
+            state = state._replace(sweeps=state.sweeps + 1)
+        spans.add("optimize.graphed_steps", n_steps - done)
+        return state
+
+    def _adopt(self, state: OptState) -> OptState:
+        if self.bufs is None:
+            self.bufs = _state_tensors(state)
+        else:
+            self._write(state)
+        return _with_tensors(state, self.bufs)
+
+    def _write(self, new: OptState) -> None:
+        """Copy a state's tensors into the buffers, but for the buffers
+        themselves."""
+        for b, t in zip(self.bufs, _state_tensors(new)):
+            if t is not b:
+                b.copy_(t)
+
+    def _build(self, state: OptState) -> OptState:
+        """One eager step (the warm-up), the two captures, then the
+        warm-up's state into the buffers (the captures ran nothing)."""
+        rs = state.replicas
+        R, dev = rs.kappa.shape[0], rs.P.device
+        # the sweep's scalar theta and delta as vectors on the device, made
+        # once: from a Python float the sweep would copy one to the
+        # device in every step, and wait for that copy
+        hp = self.ev.hp
+        self.ev = ev = self.ev._replace(hp={**hp, **{
+            k: torch.full((R,), hp[k], dtype=torch.float32, device=dev)
+            for k in ("theta", "delta") if not isinstance(hp[k], torch.Tensor)
+        }})
+        cap = self.capture = self.capture_cls(state.gen, dev)
+        with cap.side_stream():
+            pre = _step_pre(ev, state)
+            new = _step_post(ev, state, pre, _step_sweep(ev, state, pre))
+        self.sweep_in = SweepOut(
+            torch.zeros_like(rs.x), rs.P, rs.pi, rs.S, torch.zeros_like(rs.viol),
+            torch.zeros_like(rs.iter_i),
+        )
+        self.pre, self.replay_pre = cap(lambda: _step_pre(ev, state))
+        _, self.replay_post = cap(
+            lambda: self._write(_step_post(ev, state, self.pre, self.sweep_in))
+        )
+        with cap.side_stream():
+            self._write(new)
+        return state._replace(sweeps=state.sweeps + 1)
+
+    def close(self) -> None:
+        """Release the graphs and their memory pool; the buffers stay with
+        the last state."""
+        if self.capture is not None:
+            self.capture.close()
+        self.capture = self.pre = self.sweep_in = None
+        self.replay_pre = self.replay_post = None
+
+
 def evolve(ev: EvolveInputs, state: OptState, n_steps: int) -> OptState:
     """``n_steps`` evolution steps, then the per-chunk flip-counter decay
     (an exponential decay keeps it biased to recent instability).
@@ -476,9 +728,13 @@ def evolve(ev: EvolveInputs, state: OptState, n_steps: int) -> OptState:
     population with no collective (but the ``cycle`` policy's); then the
     ranks sum their flip counts, and every rank's top-K members go to
     every rank's population (``exchange_top_k``)."""
-    flips0 = state.flips
-    for _ in range(n_steps):
-        state = one_step(ev, state)
+    # a copy: the step graphs update the state's tensors in place
+    flips0 = state.flips.clone()
+    if ev.graphs is not None:
+        state = ev.graphs.run(state, n_steps)
+    else:
+        for _ in range(n_steps):
+            state = one_step(ev, state)
     # in-chunk accumulation stays linear so the ranks' counts sum exactly
     flip_delta = state.flips - flips0
     if ev.mesh is not None:
@@ -1135,6 +1391,8 @@ def optimize_compiled(
         mesh=mesh,
         ablate=ablate,
     )
+    if step_graphs_apply(ev, R_local, dtype, dev):
+        ev = ev._replace(graphs=StepGraphs(ev))
 
     # Stopping: with a time limit, run until it expires (reference:
     # itm-optimizer-common.hpp:836-859); without one the total sweep
@@ -1236,12 +1494,17 @@ def optimize_compiled(
         def fleet_fn(stats, decisions):
             return fleet_stats(mesh, stats, decisions, value_sign)
 
-    state = _budget_loop(
-        ctx, params, state, lambda st, k: evolve(ev, st, k), stats_fn, chunk,
-        time_limit, sweep_budget, budget_t0, last_ckpt, bound_fn=bound_fn,
-        probe_fn=probe_fn, diversify_fn=diversify if mesh is None else None,
-        value_sign=value_sign, save_fn=save_fn, fleet_fn=fleet_fn,
-    )
+    try:
+        state = _budget_loop(
+            ctx, params, state, lambda st, k: evolve(ev, st, k), stats_fn,
+            chunk, time_limit, sweep_budget, budget_t0, last_ckpt,
+            bound_fn=bound_fn, probe_fn=probe_fn,
+            diversify_fn=diversify if mesh is None else None,
+            value_sign=value_sign, save_fn=save_fn, fleet_fn=fleet_fn,
+        )
+    finally:
+        if ev.graphs is not None:
+            ev.graphs.close()
 
     # extraction (reference: :869-900); best LAST to match Result.best
     pop = state.pop

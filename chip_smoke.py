@@ -91,12 +91,12 @@ baryonyx_torch/csrc, then:
      --auto:branch for 4 s), each followed by --check: exit code 0 and a
      valid .sol; prints the method, objective, replica count and wall time
      of each, with the kernel launches of each run;
- 15. at sweep inputs copied from the manual mode's first chunks
-     (scp200x1000, R = 512, every replica at a combo of its own: the first
-     chunk varies delta, kappa_min, kappa_step and init_policy_random, a
-     later one theta too) holds the kernel against its plain version
-     again (x bit for bit, P, pi and S within phase 1's tolerances) and
-     times it as phase 3 does, with its byte bound;
+ 15. at sweep inputs copied from the manual mode's first runs over its grid,
+     the 100th sweep of each (scp200x1000, R = 512, every replica at a combo
+     of its own: the first run varies delta, kappa_min, kappa_step and
+     init_policy_random, a later one theta too) holds the kernel against
+     its plain version again (x bit for bit, P, pi and S within phase 1's
+     tolerances) and times it as phase 3 does, with its byte bound;
  16. population checkpoints: optimize on scp200x1000 for 3 s writing
      build/checkpoint-scp200x1000.npz after every chunk, then a second 3 s
      run that must say it resumed from it and be no worse;
@@ -169,6 +169,14 @@ baryonyx_torch/csrc, then:
      as the plain step compacts them, ms per row block and the byte bound
      of each. Then zknap200x1000 under compact for 2 s: valid, DP
      launches equal to sweeps x blocks;
+ 28. (run before phase 26) the evolution step's CUDA graphs: 40 steps of
+     optimize on scp200x1000 at R 2,048 (two column-sum recomputes, a
+     chunk boundary, a cataclysm between chunks) through
+     ``StepGraphs`` and through ``one_step``, every state tensor and the
+     random stream's state bit for bit after each chunk, with the graphed
+     run's peak of device memory above what the script held; then ms per
+     step over 200 steps after 20, eager, graphed, graphed, eager
+     (``tests/step_graph_run.py``);
  26. prints one JSON line with every kernel's numbers (kernel B's double
      instance as a row of its own), then the last line
      {"ok": true, "device": {...}}.
@@ -213,6 +221,8 @@ F64_SOLVE_TIME_LIMIT_S = 10.0  # float64 solve on zknap200x1000
 F64_TIME_LIMIT_S = 4.0  # each float64 optimize run
 CLASS_TIME_LIMIT_S = 4.0  # each optimize run of phases 23 and 24
 ABLATE_TIME_LIMIT_S = 2.0  # each optimize run of phase 27
+STEP_GRAPH_WARM = 20  # phase 28's timed runs: steps before the timed chunk
+STEP_GRAPH_TIMED = 200  # and in it
 # phase 27's runs on scp200x1000: no ablation, one run per hook, and no
 # ablation again (the first run of a series is the slowest)
 ABLATE_RUNS = ("", "compact", "value", "flips", "insert", "violw", "")
@@ -1274,7 +1284,7 @@ def main() -> int:
     # ---- phase 14: the three meta-optimizer modes through the command line
     meta_recs = {}
     manual_states = []
-    real_opt = bopt.optimize_compiled
+    real_opt, real_sweep = bopt.optimize_compiled, pw.psweep
     with tempfile.TemporaryDirectory() as tmp:
         lp_path = Path(tmp) / "scp200x1000.lp"
         lp_path.write_text(instances["scp200x1000"])
@@ -1282,17 +1292,23 @@ def main() -> int:
             runs = []
 
             def recorded(ctx, pb, device=None, hp_vectors=None):
-                res = real_opt(ctx, pb, device=device, hp_vectors=hp_vectors)
+                # the manual mode's runs over the grid: the inputs of each
+                # one's 100th sweep, every replica at a combo of its own
+                # (the grid turns theta slowest: it takes one value in the
+                # first 625 combos, so the first run's 512 have one)
+                keep = mode == "manual" and hp_vectors is not None
+                if keep:
+                    pw.psweep = run_cap = Capture(real_sweep, 100, 1, first=True)
+                try:
+                    res = real_opt(ctx, pb, device=device, hp_vectors=hp_vectors)
+                finally:
+                    pw.psweep = real_sweep
+                if keep and len(manual_states) < 6:
+                    manual_states.extend(run_cap.states)
                 runs.append((res, hp_vectors is not None))
                 return res
 
-            # sweep inputs of the manual mode's first chunks, every replica
-            # at a combo of its own (the grid turns theta slowest: it takes
-            # one value in the first 625 combos)
-            cap = Capture(pw.psweep, 100, 6, first=True)
             bopt.optimize_compiled = recorded
-            if mode == "manual":
-                pw.psweep = cap
             try:
                 for k in counters.values():
                     k.launches = 0
@@ -1305,9 +1321,6 @@ def main() -> int:
                 mcounts = {name: k.launches for name, k in counters.items()}
             finally:
                 bopt.optimize_compiled = real_opt
-                pw.psweep = cap.real
-            if mode == "manual":
-                manual_states = list(cap.states)
             sols = list(Path(tmp).glob("scp200x1000.lp-*.sol"))
             if rc != 0 or len(sols) != 1:
                 fail(f"--auto:{mode} returned {rc} and wrote {len(sols)} .sol "
@@ -1341,7 +1354,7 @@ def main() -> int:
 
     # ---- phase 15: kernel A at per-replica theta and delta
     if not manual_states:
-        fail("--auto:manual: no sweep input of its first chunk was kept")
+        fail("--auto:manual: no sweep input of its first runs was kept")
     thetas_seen = 1
     for i, st in enumerate(manual_states):
         delta_v, theta_v = st[0][8], st[0][9]
@@ -1893,6 +1906,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[phase 27] {time.monotonic() - t27:.1f} s")
 
+    # ---- phase 28: the evolution step's CUDA graphs against one_step
+    t28 = time.monotonic()
+    import step_graph_run as sgr
+
+    graw = bt.parse_lp(instances["scp200x1000"])
+    geager = sgr.run_plan(bt, graw, dev, graphed=False, seed=args.seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gheld = torch.cuda.memory_allocated(dev)
+    ggraphed = sgr.run_plan(bt, graw, dev, graphed=True, seed=args.seed)
+    gpeak = torch.cuda.max_memory_allocated(dev) - gheld
+    gbad = sgr.mismatches(ggraphed, geager)
+    print(f"[step graphs] rule {ggraphed['rule']} R {ggraphed['result'].replicas} "
+          f"plan {sgr.PLAN}: mismatched fields by item {gbad}; peak {gpeak} B "
+          f"above the {gheld} B held before")
+    if not ggraphed["rule"] or gbad:
+        fail(f"step graphs: rule {ggraphed['rule']}, mismatches {gbad}")
+    gms = {"eager": [], "graphed": []}
+    for graphed in (False, True, True, False):
+        r = sgr.run_plan(bt, graw, dev, graphed=graphed, seed=args.seed,
+                         plan=(STEP_GRAPH_WARM, STEP_GRAPH_TIMED))
+        gms["graphed" if graphed else "eager"].append(
+            1e3 * r["seconds"][1] / STEP_GRAPH_TIMED)
+    step_graph_rec = dict(rule=ggraphed["rule"], plan=list(sgr.PLAN),
+                          mismatches=gbad, memory_peak_bytes=gpeak,
+                          ms_per_step=gms, timed_steps=STEP_GRAPH_TIMED)
+    print(f"[step graphs] ms per step over {STEP_GRAPH_TIMED} steps, in turns: "
+          f"eager {gms['eager']}, graphed {gms['graphed']}")
+    del graw, geager, ggraphed
+    torch.cuda.empty_cache()
+    print(f"[phase 28] {time.monotonic() - t28:.1f} s")
+
     # ---- phase 26: the kernels line, then the result line
     print(f"[chip_smoke] {time.monotonic() - t_script:.1f} s")
     main = per_instance[0]
@@ -1983,7 +2027,8 @@ def main() -> int:
         "float64_runs": f64_rec,
     }], "general_sweep": sweep_recs, "solve": solve_rec,
         "optimize_general_sweep": fallback_rec, "meta": meta_recs,
-        "checkpoint": ckpt_runs, "two_ranks": two_rec, "row_route": row_rec}))
+        "checkpoint": ckpt_runs, "two_ranks": two_rec, "row_route": row_rec,
+        "step_graphs": step_graph_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
