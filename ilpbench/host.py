@@ -1,7 +1,10 @@
 """The host around a run: each rank keeps to cores of its own, and times a
 fixed piece of pure-Python work right after its window (``probe_ms``), a
 reading of the host's single-thread speed then, so that a run that reads
-slow can be told apart from a slow host."""
+slow can be told apart from a slow host. ``driver.py`` adds the process's
+CPU seconds over the window (``window_cpu_s``): over a fixed amount of
+work, more of them means a slower host, where the probe reads only one
+instant."""
 
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""The least time a sweep of the fused kernel (kernel A) needs, against
-the card's published peaks (``peaks.json``): the bytes the sweep's inputs
-need over the memory rate, or its operations over the float32 rate,
-whichever is larger.
+"""The least time a sweep of the fused kernel (kernel A) needs, and a call
+of the knapsack DP (kernel B, ``dpselect_bound``), against the card's
+published peaks (``peaks.json``): the bytes its inputs need over the memory
+rate, or its operations over the float32 rate, whichever is larger.
 
 Counted per sweep (the arithmetic of the program's ``chip_smoke.py``
 bound): ``sched`` of the rows it walks; for each scheduled (row, replica)
@@ -56,5 +56,35 @@ def psweep_bound(ref: dict, cp: dict, st: dict, kind: str) -> Optional[dict]:
     p = PEAKS[kind]
     t_b = nbytes / p["hbm_bytes_per_s"] * 1e3
     t_o = ops / p["f32_ops_per_s"] * 1e3
+    return {"ms": max(t_b, t_o), "by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def dpselect_bound(ref: dict, rows, R: int, itemsize: int, kind: str) -> Optional[dict]:
+    """{"ms", "by", "bytes", "ops"} of one call of the knapsack DP (kernel
+    B) over the row block ``rows`` (the program's row indices) and R
+    replicas, with scores of ``itemsize`` bytes, at the reference's DP
+    tables (``Wdp``, ``dp_row``, the slots per row); None for a card
+    without published peaks.
+
+    Counted as the program's ``chip_smoke.py`` counts it, for the rows of
+    the block that are DP rows: r, the row tables and the slot mask read,
+    the chosen set [B, Kr, R] written for every row of the block and the
+    row list read; per (row, replica) the table's set-up 1 per w, per slot
+    and w the shift test, the add, the compare and two selects 5, the
+    argmin over w 4 per w, the read-out 2 per slot. The table itself stays
+    on chip in an ideal kernel and is not counted. Float64 scores run at
+    half the float32 rate."""
+    if kind not in PEAKS:
+        return None
+    W, Kr = ref["Wdp"], ref["row_vars"].shape[1]
+    rows = torch.as_tensor(rows).long().cpu()
+    B = rows.numel()
+    n_dp = int(torch.as_tensor(ref["dp_row"])[rows].sum())
+    nbytes = (B * Kr * R + 5 * B + itemsize * n_dp * Kr * R + 5 * n_dp * Kr + 12 * n_dp)
+    ops = n_dp * R * (W * (1 + 5 * Kr + 4) + 2 * Kr)
+    p = PEAKS[kind]
+    t_b = nbytes / p["hbm_bytes_per_s"] * 1e3
+    t_o = ops / (p["f32_ops_per_s"] * 4 / itemsize) * 1e3
     return {"ms": max(t_b, t_o), "by": "bytes" if t_b >= t_o else "operations",
             "bytes": nbytes, "ops": ops}

@@ -157,7 +157,7 @@ def compose(bench, cell, config, traffic, seed, trace, recs, here) -> dict:
         "replicas": r0["replicas"], "parse_s": r0["parse_s"],
         "solver_setup_s": r0["solver_setup_s"], "failed": r0["failed"],
         "objective": min(objectives) if objectives else None, "lb": None,
-        "bound": r0.get("bound"), "trace": r0.get("trace"),
+        "bound": r0.get("bound"), "dp_bound": r0.get("dp_bound"), "trace": r0.get("trace"),
     }
     if objectives and any(m["name"] == "gap_pct" for m in reported):
         run_rec["lb"] = lower_bound(driver.make_instance(config, seed, here),

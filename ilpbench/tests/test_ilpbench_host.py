@@ -1,5 +1,6 @@
 """The host's probe and the cores each rank keeps to, and the sweep
-probe's record of the traced sweeps that kernel A's roofline sums."""
+probe's record of the traced sweeps that kernel A's roofline sums and of
+the traced DP calls that kernel B's sums."""
 
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def test_the_probe_records_only_the_traced_sweeps():
 
     mod = types.SimpleNamespace(psweep=sweep)
     args = lambda i: (None, i, i, i, i, torch.tensor([[i > 0]]), torch.tensor([i]))  # noqa: E731
-    with SweepProbe(mod, "psweep") as probe:
+    with SweepProbe((mod, "psweep")) as probe:
         mod.psweep(*args(0), n_rows=0)
         probe.recording = True
         for i in (1, 2, 3):
@@ -45,3 +46,36 @@ def test_the_probe_records_only_the_traced_sweeps():
     assert mod.psweep is sweep and probe.calls == 5 and len(calls) == 5
     assert [int(st["order"]) for st in probe.traced] == [1, 2, 3]
     assert [st["n_rows"] for st in probe.traced] == [1, 2, 3]
+
+
+def test_the_probe_records_only_the_traced_dp_calls():
+    from baryonyx_torch.ops import zsweep as zs
+
+    real = zs.dp_select
+    seen = []
+
+    def dp_select(cp, rows_c, r, mask, minimize):
+        seen.append(int(rows_c[0]))
+        return r > 0
+
+    def z_sweep(*a, **kw):  # a Z sweep of one block, which calls the DP
+        zs.dp_select(None, torch.tensor([a[1]], dtype=torch.int32),
+                     torch.zeros((1, 2, 3), dtype=torch.float64), None, True)
+        return a[1:5]
+
+    zs.dp_select = dp_select
+    mod = types.SimpleNamespace(z_sweep=z_sweep)
+    try:
+        with SweepProbe((mod, "z_sweep")) as probe:
+            mod.z_sweep(None, 0)
+            probe.recording = True
+            mod.z_sweep(None, 1)
+            mod.z_sweep(None, 2)
+            probe.recording = False
+            mod.z_sweep(None, 3)
+        assert zs.dp_select is dp_select and seen == [0, 1, 2, 3]
+        assert [(int(rows[0]), R, size) for rows, R, size in probe.dp_calls] == [(1, 3, 8),
+                                                                                (2, 3, 8)]
+        assert probe.traced == []  # no fused sweep ran
+    finally:
+        zs.dp_select = real
