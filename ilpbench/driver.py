@@ -32,14 +32,20 @@ from ilpbench.roofline import dpselect_bound, psweep_bound
 HERE = Path(__file__).resolve().parent
 
 
+def generator(name: str, here: Path = HERE):
+    """The module ``generators/<name>.py``."""
+    path = here / "generators" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"ilpbench_gen_{name}", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    return gen
+
+
 def make_instance(config: dict, seed: int, here: Path = HERE) -> Instance:
     """The configuration's instance (``generators/<generator>.py``), its
     rows and columns in the order ``seed`` draws."""
-    path = here / "generators" / f"{config['generator']}.py"
-    spec = importlib.util.spec_from_file_location(f"ilpbench_gen_{config['generator']}", path)
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
-    base = gen.generate(config["instance_seed"], **config["args"])
+    base = generator(config["generator"], here).generate(config["instance_seed"],
+                                                         **config["args"])
     return permuted(base, seed)
 
 
@@ -352,12 +358,14 @@ def run_rank(config: dict, traffic: dict, seed: int, seconds: float, trace: bool
     if device.type == "cuda":
         torch.cuda.empty_cache()
     rec.update(judge(inst, results, rec.pop("sweep_state"), device, control,
-                     rec.pop("traced_states", None), rec.pop("dp_calls")))
+                     rec.pop("traced_states", None), rec.pop("dp_calls"),
+                     config.get("dp_required", "span")))
     return rec
 
 
 def judge(inst: Instance, results: list, kept: Optional[dict], device, control=None,
-          traced: Optional[List[dict]] = None, dp_calls: Optional[List[tuple]] = None) -> dict:
+          traced: Optional[List[dict]] = None, dp_calls: Optional[List[tuple]] = None,
+          dp_rule: str = "span") -> dict:
     """The reference's readings of this rank's answers and kept sweep:
     rows the answers leave unsatisfied, the objective each reports against
     the one worked out again, the program's tables against the
@@ -383,9 +391,11 @@ def judge(inst: Instance, results: list, kept: Optional[dict], device, control=N
     cp = {k: (v.numpy() if isinstance(v, torch.Tensor) else v) for k, v in kept["cp"].items()}
     ref, bad = tables.reference_tables(
         inst, names, cp["row_vars"], cp["r_size"].astype(np.int64), cp["m_real"], cp["n"],
+        dp_rule,
     )
     program = dict(cp, cost=kept["args"][3].numpy())
     out["table_mismatch"] = bad + tables.held_against(ref, program, cp["m_real"])
+    ref = tables.follow_routes(ref, program)
     out["sweep_mismatch"] = sweep_mismatch(ref, kept, device)
     if control is not None:
         out["control_sweep_mismatch"] = sweep_mismatch(ref, kept, device, control)
@@ -393,7 +403,7 @@ def judge(inst: Instance, results: list, kept: Optional[dict], device, control=N
         kind = torch.cuda.get_device_name(device)
         if traced:
             out["bound"] = traced_bound(ref, cp, traced, kind)
-        if dp_calls and ref.get("Wdp"):
+        if dp_calls and ref["has_z"] and ref["dp_row"].any():
             out["dp_bound"] = dp_bound(ref, dp_calls, kind)
     return out
 

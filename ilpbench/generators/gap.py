@@ -22,6 +22,17 @@ A_RANGE = (1, 100)
 E_RANGE = (-10, 10)
 C_BASE = 111
 TIGHTNESS = 0.8
+# the CPU tests' size (tests/tiny.py): the job rows enumerate, the capacity
+# rows (sum of a about 1,500) take the knapsack DP
+TINY_ARGS = {"m": 5, "n": 30}
+# and their traffic, per mode: a Z sweep takes up to a third of a second on
+# the CPU, so chunks and solves are cut short (the probe and the trace
+# take tests/tiny.py's MODE_CUT: a 14 x 90 solve on DP tables sized to the
+# rows' windows ends before the probe's 20th call)
+TINY_TRAFFIC = {
+    "optimize": {"params": {"chunk_size": 2}, "warmup_sweeps": 4, "warmup_budget_s": 20.0},
+    "solve": {"params": {"limit": 100, "pushes_limit": 1, "pushing_iteration_limit": 3}},
+}
 
 
 def generate(seed: int, m: int, n: int) -> Instance:

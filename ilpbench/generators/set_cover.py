@@ -11,6 +11,8 @@ import random
 
 from ilpbench.reference.instance import GE, Instance, from_rows
 
+TINY_ARGS = {"m": 40, "n": 200, "density": 0.05}  # the CPU tests' size (tests/tiny.py)
+
 
 def generate(seed: int, m: int, n: int, density: float, cost_range=(1, 100)) -> Instance:
     rng = random.Random(seed)

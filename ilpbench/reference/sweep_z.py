@@ -9,11 +9,13 @@ order across blocks.
 - reduced costs r = c - (S + |a| (theta - 1) P) + amp c, no sign flip;
 - each row's set: rows the tables enumerate take the feasible assignment
   of least summed r (one ``bmm`` per block; the first of equal scores);
-  DP rows the exact 0-1 knapsack over the gcd-scaled activity, the
-  kernel's way (per slot one add and a strict compare, the answer at the
-  lowest w of least score in the row's range); every other row the greedy
-  prefix walk over r sorted with ties broken by noise from the run's
-  generator (drawn for every block once any row walks) and then by slot;
+  DP rows (the program's, ``tables.follow_routes``) the exact 0-1
+  knapsack over the gcd-scaled activity in the row's own reachable window,
+  the kernel's way (per slot one add and a strict compare, the answer at
+  the lowest w of least score in the row's range); every other row the
+  greedy prefix walk over r sorted with ties broken by noise from the
+  run's generator (drawn for every block where the program's
+  ``z_needs_walk`` is set) and then by slot;
 - pi moves by half the least r (no slot chosen), 1.5 x the worst chosen r
   (every slot chosen) or the mean of the worst chosen and best unchosen r;
   P decays by theta, moves by +-d with d = kappa / (1 - kappa) + delta,
@@ -68,15 +70,16 @@ def _walk(t, rl, r_masked, a, tb, minimize):
 
 
 def _dp_row(t, k, r_row, live, minimize):
-    """The knapsack DP of row ``k`` for every replica: r_row [Kr, R],
-    live [Kr]. Returns the chosen slots bool[Kr, R]."""
+    """The knapsack DP of row ``k`` for every replica over its window
+    (table entry w is activity ``win_lo`` + w): r_row [Kr, R], live [Kr].
+    Returns the chosen slots bool[Kr, R]."""
     Kr, R = r_row.shape
     dev = r_row.device
-    W = int(t["Wdp"])
+    W = int(t["win_w"][k])
     big = float("inf") if r_row.dtype == torch.float64 else DP_BIG
     rq = torch.where(live[:, None], r_row if minimize else -r_row, big)
     a = t["dp_fac"][k]
-    lo = int(t["dp_lo"][k])
+    lo = int(t["win_lo"][k])
     wi = torch.arange(W, device=dev)
     f = torch.full((W, R), big, dtype=r_row.dtype, device=dev)
     f[-lo] = 0
@@ -116,6 +119,7 @@ def z_sweep(t: dict, st: dict, dtype=torch.float32):
     order = st["order"].to(device=dev, dtype=torch.int32)
     mp = order.shape[0]
     gen = None
+    dp_rows = set(torch.nonzero(t["dp_row"]).flatten().tolist())
     if t["z_needs_walk"]:
         gen = torch.Generator(device=dev)
         gen.set_state(st["gen_state"])
@@ -164,9 +168,8 @@ def z_sweep(t: dict, st: dict, dtype=torch.float32):
             tb = torch.rand((B, Kr, R), generator=gen, device=dev)
             chosen = torch.where(t["enum_row"][rl][:, None, None], chosen,
                                  _walk(t, rl, r_masked, a, tb, minimize))
-        for i in range(B):
-            k = int(rl[i])
-            if int(t["Wdp"]) and bool(t["dp_row"][k]):
+        for i, k in enumerate(rl.tolist()):
+            if k in dp_rows:
                 chosen[i] = _dp_row(t, k, r[i], mask[i], minimize)
         chosen = chosen & live
 

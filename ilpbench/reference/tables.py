@@ -14,9 +14,19 @@ norm: c / max c over the program's variables).
 An instance with an integer factor |a| > 1 (a Z instance) also gets the Z
 sweep's tables: rows of up to ``Z_ENUM_MAX`` variables enumerate their
 feasible assignments (bit s of an assignment is slot s, in the order of
-the integers 0 .. 2^L - 1); longer rows with a factor |a| > 1 take the
-knapsack DP over their activity scaled by the factors' gcd, where the
-scaled span fits ``DP_W_MAX``; every other row walks."""
+the integers 0 .. 2^L - 1). A longer row with a factor |a| > 1 gets its
+factors and bounds scaled by the factors' gcd and its reachable window:
+with N and Pz the sums of its scaled negative and positive factors and
+[blo, bhi] its scaled bounds, the activities [max(N, blo - Pz), min(Pz,
+bhi - N)]. A prefix of a chosen set whose activity ends in [blo, bhi] lies
+in that window (the rest of the set adds between N and Pz), so a knapsack
+DP over any table that covers the window chooses what it chooses over the
+whole span, bit for bit. The DP may take such a row where its window fits
+``DP_W_MAX``, and must take it where its whole span does (``"span"``, the
+program's first rule) or, where the configuration's ``"dp_required"`` is
+``"window"``, where its window does. Which rows the program sends to the DP is its own choice
+within those rules (``held_against``); the reference replays the choice
+(``follow_routes``), and every other long row walks."""
 
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from ilpbench.reference.instance import EQ, GE, LE, Instance
 
 Z_ENUM_MAX = 12  # rows of up to this many variables enumerate
 DP_W_MAX = 4096  # the widest scaled activity span the DP takes
+# the program's Z tables, which the sweep probe keeps
 Z_KEYS = ("enum_row", "assign_bits", "assign_valid", "dp_row", "dp_fac", "dp_lo", "dp_blo",
           "dp_bhi")
 
@@ -63,12 +74,13 @@ def _bounds(a: np.ndarray, senses: List[int], rhs: List[float]) -> Tuple[int, in
 
 def reference_tables(
     inst: Instance, col_names: List[str], row_vars: np.ndarray, r_size: np.ndarray,
-    m_real: int, n_cols: int,
+    m_real: int, n_cols: int, dp_rule: str = "span",
 ) -> Tuple[Dict[str, np.ndarray], int]:
     """(tables, mismatches against the instance's own rows and columns).
     ``col_names``: the program's variable of each column; ``row_vars``
     [m, Kr] and ``r_size`` [m]: its slot layout; ``n_cols``: its padded
-    column count."""
+    column count; ``dp_rule``: the configuration's ``"dp_required"``, the
+    rule for the rows the DP must take (``z_tables``)."""
     index = {name: j for j, name in enumerate(inst.names)}
     rows = list(inst.rows())
     by_set: Dict[frozenset, List[int]] = {}
@@ -109,23 +121,28 @@ def reference_tables(
         has_z=bool((np.abs(factor) > 1).any()),
     )
     if tables["has_z"]:
-        tables.update(z_tables(factor, r_size, bmin, bmax, real))
+        tables.update(z_tables(factor, r_size, bmin, bmax, real, dp_rule))
     return tables, int(mismatch)
 
 
 def z_tables(factor: np.ndarray, r_size: np.ndarray, bmin: np.ndarray, bmax: np.ndarray,
-             real: np.ndarray) -> Dict[str, object]:
+             real: np.ndarray, dp_rule: str = "span") -> Dict[str, object]:
     """The Z sweep's tables of the rows ``real`` marks (the others stay
-    empty): enumerated assignments, DP rows, which rows walk."""
+    empty): enumerated assignments; the long rows (``long_row``); for each
+    long row with a factor |a| > 1 its gcd-scaled factors and bounds, its
+    window's first activity and width (``win_lo``, ``win_w``), whether the
+    DP may take it (``dp_able``) and whether it must (``dp_required``: by
+    the ``dp_rule`` ``"span"``, where its whole span fits ``DP_W_MAX``; by
+    ``"window"``, wherever it may)."""
+    if dp_rule not in ("span", "window"):
+        raise ValueError(f"dp_required is 'span' or 'window', not {dp_rule!r}")
     m, Kr = factor.shape
     enum_row = np.zeros(m, dtype=bool)
-    dp_row = np.zeros(m, dtype=bool)
+    dp_able = np.zeros(m, dtype=bool)
+    dp_required = np.zeros(m, dtype=bool)
     dp_fac = np.zeros((m, Kr), dtype=np.int64)
-    dp_lo = np.zeros(m, dtype=np.int64)
-    dp_blo = np.zeros(m, dtype=np.int64)
-    dp_bhi = np.zeros(m, dtype=np.int64)
+    dp_blo, dp_bhi, win_lo, win_w = (np.zeros(m, dtype=np.int64) for _ in range(4))
     feasible: Dict[int, np.ndarray] = {}
-    span_max = 0
     for k in np.flatnonzero(real):
         L = int(r_size[k])
         a = factor[k, :L].astype(np.int64)
@@ -136,26 +153,49 @@ def z_tables(factor: np.ndarray, r_size: np.ndarray, bmin: np.ndarray, bmax: np.
             enum_row[k] = True
         elif (np.abs(a) > 1).any():
             g = math.gcd(*np.abs(a).tolist())
-            span = (int(a[a > 0].sum()) - int(a[a < 0].sum())) // g + 1
-            if span <= DP_W_MAX:
-                dp_row[k] = True
-                dp_fac[k, :L] = a // g
-                dp_lo[k] = int(a[a < 0].sum()) // g
-                dp_blo[k] = -(-int(bmin[k]) // g)
-                dp_bhi[k] = int(bmax[k]) // g
-                span_max = max(span_max, span)
+            dp_fac[k, :L] = a // g
+            neg, pos = int(dp_fac[k][dp_fac[k] < 0].sum()), int(dp_fac[k][dp_fac[k] > 0].sum())
+            dp_blo[k] = -(-int(bmin[k]) // g)
+            dp_bhi[k] = int(bmax[k]) // g
+            win_lo[k] = max(neg, dp_blo[k] - pos)
+            win_w[k] = max(0, min(pos, dp_bhi[k] - neg) - win_lo[k] + 1)
+            dp_able[k] = 1 <= win_w[k] <= DP_W_MAX
+            dp_required[k] = (dp_able[k] if dp_rule == "window"
+                              else pos - neg + 1 <= DP_W_MAX)
     amax = bucket(max((len(f) for f in feasible.values()), default=1) or 1, 16)
     assign_bits = np.zeros((m, amax, Kr), dtype=np.int8)
     assign_valid = np.zeros((m, amax), dtype=bool)
     for k, f in feasible.items():
         assign_bits[k, : len(f), : f.shape[1]] = f
         assign_valid[k, : len(f)] = True
-    walk = real & ~enum_row & ~dp_row
     return dict(
-        enum_row=enum_row, assign_bits=assign_bits, assign_valid=assign_valid, dp_row=dp_row,
-        dp_fac=dp_fac, dp_lo=dp_lo, dp_blo=dp_blo, dp_bhi=dp_bhi,
-        Wdp=bucket(span_max, 8) if span_max else 0, walk=walk, z_needs_walk=bool(walk.any()),
+        enum_row=enum_row, assign_bits=assign_bits, assign_valid=assign_valid,
+        long_row=real & ~enum_row, dp_fac=dp_fac, dp_blo=dp_blo, dp_bhi=dp_bhi, win_lo=win_lo,
+        win_w=win_w, dp_able=dp_able, dp_required=dp_required,
     )
+
+
+def _program_dp_rows(program: Dict[str, object], m: int) -> np.ndarray:
+    """The rows the program sends to the DP (none where it has no DP
+    table)."""
+    if program.get("dp_row") is None or not int(program.get("Wdp", 0)):
+        return np.zeros(m, dtype=bool)
+    return np.asarray(program["dp_row"]).astype(bool)[:m]
+
+
+def follow_routes(tables: Dict[str, object], program: Dict[str, object]) -> Dict[str, object]:
+    """The Z tables with the program's routes, which the reference
+    sweep replays: the program's DP rows among the rows that have a window
+    (``dp_row``), every other long row walking (``walk``), and the
+    program's ``z_needs_walk`` (whether the sweep draws the walk's noise).
+    ``held_against`` holds the routes to their rules."""
+    if not tables["has_z"]:
+        return tables
+    t = dict(tables)
+    t["dp_row"] = _program_dp_rows(program, len(t["win_w"])) & (t["win_w"] > 0)
+    t["walk"] = t["long_row"] & ~t["dp_row"]
+    t["z_needs_walk"] = bool(program["z_needs_walk"])
+    return t
 
 
 def _differ(a, b) -> int:
@@ -169,8 +209,12 @@ def _differ(a, b) -> int:
 
 def held_against(tables: Dict[str, np.ndarray], program: Dict[str, np.ndarray], m_real: int) -> int:
     """Entries of the program's tables (real rows; every column's cost in
-    float32; with a Z instance, the Z sweep's tables and sizes) that
-    differ from the reference's."""
+    float32; with a Z instance, the Z sweep's tables) that differ from the
+    reference's, and, with a Z instance, each breach of the routes' rules:
+    a row the DP must take that the program walks, or one it may not take
+    that the program sends to it; a DP row whose table (``dp_lo`` and the
+    next ``Wdp`` activities) leaves out part of its window; a
+    ``z_needs_walk`` that is not "some row walks"."""
     bad = 0
     live = np.arange(tables["row_vars"].shape[1])[None, :] < tables["r_size"][:m_real, None]
     bad += int(((tables["row_factor"][:m_real] != program["row_factor"][:m_real]) & live).sum())
@@ -179,15 +223,26 @@ def held_against(tables: Dict[str, np.ndarray], program: Dict[str, np.ndarray], 
     ref_cost = torch.as_tensor(tables["cost"], dtype=torch.float32).numpy()
     bad += _differ(ref_cost, program["cost"])
     bad += int(tables["has_z"] != bool(program["has_z"]))
-    if tables["has_z"] and program["has_z"]:
-        for key in Z_KEYS:
-            if program.get(key) is None:  # the program has no table of this kind
-                bad += int(np.asarray(tables[key][:m_real]).astype(bool).any())
-            else:
-                bad += _differ(tables[key][:m_real], np.asarray(program[key])[:m_real])
-        for key in ("Wdp", "z_needs_walk"):
-            bad += int(tables[key] != program[key])
-    return bad
+    if not (tables["has_z"] and program["has_z"]):
+        return bad
+    for key in ("enum_row", "assign_bits", "assign_valid"):
+        if program.get(key) is None:  # the program has no table of this kind
+            bad += int(np.asarray(tables[key][:m_real]).astype(bool).any())
+        else:
+            bad += _differ(tables[key][:m_real], np.asarray(program[key])[:m_real])
+    dp = _program_dp_rows(program, m_real)
+    for key in ("dp_fac", "dp_blo", "dp_bhi"):  # exact on the program's DP rows, 0 elsewhere
+        want = tables[key][:m_real] * (dp[:, None] if tables[key].ndim == 2 else dp)
+        got = program.get(key)
+        bad += _differ(want, np.zeros_like(want) if got is None else np.asarray(got)[:m_real])
+    bad += int((tables["dp_required"][:m_real] & ~dp).sum())
+    bad += int((dp & ~tables["dp_able"][:m_real]).sum())
+    if dp.any():
+        lo = np.asarray(program["dp_lo"])[:m_real].astype(np.int64)
+        first, width = tables["win_lo"][:m_real], tables["win_w"][:m_real]
+        bad += int((dp & ((lo > first) | (lo + int(program["Wdp"]) < first + width))).sum())
+    walks = bool((tables["long_row"][:m_real] & ~dp).any())
+    return bad + int(walks != bool(program["z_needs_walk"]))
 
 
 def on_device(tables: Dict[str, np.ndarray], dtype, device) -> Dict[str, object]:
@@ -195,7 +250,8 @@ def on_device(tables: Dict[str, np.ndarray], dtype, device) -> Dict[str, object]
     t["row_vars"] = torch.as_tensor(tables["row_vars"], dtype=torch.int64, device=device)
     t["row_factor"] = torch.as_tensor(tables["row_factor"], dtype=dtype, device=device)
     t["cost"] = torch.as_tensor(tables["cost"], dtype=torch.float32, device=device).to(dtype)
-    for key in ("r_size", "bmin", "bmax", "neg_count", "dp_fac", "dp_lo", "dp_blo", "dp_bhi"):
+    for key in ("r_size", "bmin", "bmax", "neg_count", "dp_fac", "dp_blo", "dp_bhi", "win_lo",
+                "win_w"):
         if key in tables:
             t[key] = torch.as_tensor(np.asarray(tables[key], np.int64), device=device)
     for key in ("is_eq", "enum_row", "assign_valid", "dp_row", "assign_bits"):

@@ -19,6 +19,7 @@ import json
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 PEAKS = json.loads((Path(__file__).parent / "peaks.json").read_text())
@@ -63,26 +64,28 @@ def psweep_bound(ref: dict, cp: dict, st: dict, kind: str) -> Optional[dict]:
 def dpselect_bound(ref: dict, rows, R: int, itemsize: int, kind: str) -> Optional[dict]:
     """{"ms", "by", "bytes", "ops"} of one call of the knapsack DP (kernel
     B) over the row block ``rows`` (the program's row indices) and R
-    replicas, with scores of ``itemsize`` bytes, at the reference's DP
-    tables (``Wdp``, ``dp_row``, the slots per row); None for a card
+    replicas, with scores of ``itemsize`` bytes, at the reference's tables
+    with the program's routes (``dp_row``): each of the block's DP rows
+    counted at its own reachable window (``win_w``) and its own slots
+    (``r_size``), whatever table the program runs it on; None for a card
     without published peaks.
 
-    Counted as the program's ``chip_smoke.py`` counts it, for the rows of
-    the block that are DP rows: r, the row tables and the slot mask read,
-    the chosen set [B, Kr, R] written for every row of the block and the
-    row list read; per (row, replica) the table's set-up 1 per w, per slot
-    and w the shift test, the add, the compare and two selects 5, the
-    argmin over w 4 per w, the read-out 2 per slot. The table itself stays
-    on chip in an ideal kernel and is not counted. Float64 scores run at
-    half the float32 rate."""
+    Bytes: the row list and its DP flags read (5 per row of the block); per
+    DP row r read and the chosen set written (``itemsize`` + 1 per slot and
+    replica), its factors and slot mask read (5 per slot) and its offset
+    and bounds (12). Operations per (DP row, replica): the table's set-up 1
+    per w; per slot and w the shift test, the add, the compare and two
+    selects 5; the argmin over w 4 per w; the read-out 2 per slot. The table
+    itself stays on chip in an ideal kernel and is not counted. Float64
+    scores run at half the float32 rate."""
     if kind not in PEAKS:
         return None
-    W, Kr = ref["Wdp"], ref["row_vars"].shape[1]
-    rows = torch.as_tensor(rows).long().cpu()
-    B = rows.numel()
-    n_dp = int(torch.as_tensor(ref["dp_row"])[rows].sum())
-    nbytes = (B * Kr * R + 5 * B + itemsize * n_dp * Kr * R + 5 * n_dp * Kr + 12 * n_dp)
-    ops = n_dp * R * (W * (1 + 5 * Kr + 4) + 2 * Kr)
+    rows = torch.as_tensor(rows).long().cpu().numpy()
+    dp = rows[np.asarray(ref["dp_row"])[rows]]
+    W = np.asarray(ref["win_w"], dtype=np.int64)[dp]
+    L = np.asarray(ref["r_size"], dtype=np.int64)[dp]
+    nbytes = 5 * len(rows) + int(((itemsize + 1) * L * R + 5 * L + 12).sum())
+    ops = R * int((W * (1 + 5 * L + 4) + 2 * L).sum())
     p = PEAKS[kind]
     t_b = nbytes / p["hbm_bytes_per_s"] * 1e3
     t_o = ops / (p["f32_ops_per_s"] * 4 / itemsize) * 1e3

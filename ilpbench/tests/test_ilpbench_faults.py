@@ -4,11 +4,14 @@ fault a cell can have has to make ``correct`` false. And the control: the
 reference's sweep in bfloat16 in the program's place has to fail. The
 same for cells of Z configurations (generalised assignment), added as
 data: the job rows enumerate or walk, the capacity rows take the DP or
-walk."""
+walk; on the program's layout and on one with DP tables sized to the
+rows' windows, and with routes that break their rules."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import shutil
 
 import pytest
 import torch
@@ -19,8 +22,10 @@ from baryonyx_torch.ops import zsweep as zs
 from baryonyx_torch.solver import optimize as opt
 from baryonyx_torch.solver import solve as sv
 from ilpbench import run
-from ilpbench.tests.tiny import (TWO_RANKS, Z_CARD, Z_CELLS, card_z_benchmark, tiny_benchmark,
-                                  z_cells)
+from ilpbench.tests import card_z
+from ilpbench.tests.tiny import (TWO_RANKS, Z_CARD, Z_CELLS, copy_benchmark, tiny_benchmark,
+                                 z_cells)
+from ilpbench.tests.window_layout import program_layout, window_tables
 
 SEED = 2**31 + 41
 
@@ -133,6 +138,83 @@ def test_a_wrong_z_table_is_caught(root, monkeypatch, cell, field):
     assert not line["correct"] and line["checks"]["table_mismatch"]["value"] > 0
 
 
+@pytest.mark.parametrize("cell", Z_CELLS)
+def test_the_window_sized_layout_reads_0(root, cell):
+    """The layout rule that sizes each DP table to its row's reachable
+    window (``window_layout.py``; at 14 x 90 the capacity rows leave the
+    walk for the DP): every check reads 0."""
+    with program_layout(window_tables):
+        line = _run(root, cell)
+    assert line["correct"], line["checks"]
+    assert all(c["value"] == 0 for c in line["checks"].values())
+
+
+def _required_row_walks(cp):
+    """The first DP row, which the DP must take, sent to the walk."""
+    dp_row = cp.dp_row.clone()
+    dp_row[int(torch.nonzero(dp_row)[0])] = False
+    return dataclasses.replace(cp, dp_row=dp_row, z_needs_walk=True)
+
+
+def _window_missed(cp):
+    """Window-sized tables, the first DP row's starting one activity above
+    its window."""
+    cp = window_tables(cp)
+    dp_lo = cp.dp_lo.clone()
+    dp_lo[int(torch.nonzero(cp.dp_row)[0])] += 1
+    return dataclasses.replace(cp, dp_lo=dp_lo)
+
+
+def _walk_flag_flipped(cp):
+    """``z_needs_walk`` the other way."""
+    return dataclasses.replace(cp, z_needs_walk=not cp.z_needs_walk)
+
+
+@pytest.mark.parametrize("fault, cells", [
+    (_required_row_walks, ["gap5x30.optimize", "gap5x30.solve"]),
+    (_window_missed, Z_CELLS),
+    (_walk_flag_flipped, Z_CELLS),
+])
+def test_a_route_that_breaks_its_rules_is_caught(root, fault, cells):
+    for cell in cells:
+        with program_layout(fault):
+            line = _run(root, cell)
+        assert not line["correct"] and line["checks"]["table_mismatch"]["value"] > 0, cell
+
+
+@pytest.fixture(scope="module")
+def window_rule_root(root, tmp_path_factory):
+    """The tiny benchmark with GAP 14 x 90 requiring the DP on every row
+    whose window fits it (``"dp_required": "window"`` in its file)."""
+    dst = tmp_path_factory.mktemp("window_rule") / "bench"
+    shutil.copytree(root, dst)
+    path = dst / "ilpbench" / "configs" / "gap14x90.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()), dp_required="window")))
+    return dst
+
+
+def _dp_able_row_walks(cp):
+    """Window-sized tables, the first DP row sent to the walk."""
+    return _required_row_walks(window_tables(cp))
+
+
+@pytest.mark.parametrize("layout, sound", [
+    (lambda cp: cp, False),  # the program's layout walks the 14 capacity rows
+    (window_tables, True),
+    (_dp_able_row_walks, False),
+])
+@pytest.mark.parametrize("cell", z_cells({"gap14x90": None}))
+def test_a_dp_able_row_that_walks_is_caught_where_the_configuration_requires_the_dp(
+        window_rule_root, cell, layout, sound):
+    """At 14 x 90 no capacity row's whole span fits the DP, but each one's
+    window does: under ``"dp_required": "window"`` a capacity row that walks
+    is a table mismatch."""
+    with program_layout(layout):
+        line = _run(window_rule_root, cell)
+    assert line["correct"] == sound, line["checks"]
+    assert (line["checks"]["table_mismatch"]["value"] == 0) == sound
+
+
 @pytest.mark.parametrize("cell", ["scp4.optimize", "scp4.solve"] + Z_CELLS)
 def test_an_altered_answer_is_caught(root, monkeypatch, cell):
     entry = cell.rsplit(".", 1)[1]
@@ -166,12 +248,46 @@ def test_the_bfloat16_control_fails(root, cell):
     assert not line["correct"] and line["checks"]["sweep_mismatch"]["value"] > 0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["scp4.optimize", "scp4.solve"] + z_cells(Z_CARD))
-def test_the_bfloat16_control_fails_on_the_card_at_the_cells_size(cell, tmp_path):
-    """The Z cells at OR-Library's gapd sizes, added as data."""
+CARD_CELLS = [("scp4.optimize", "program"), ("scp4.solve", "program")] + [
+    (c, layout) for c in z_cells(Z_CARD) for layout in ("program", "window")]
+
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run with `python -m pytest -m gpu ilpbench/tests`")
-    kw = {} if cell.startswith("scp4.") else {"root": card_z_benchmark(tmp_path)}
-    line = run.run(cell, SEED, 3.0, False, control=torch.bfloat16, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell, layout", CARD_CELLS)
+def test_the_bfloat16_control_fails_on_the_card_at_the_cells_size(cell, layout, tmp_path):
+    """The scp4 cells at their own size (the solve cell added as data), and
+    the Z cells at OR-Library's gapd sizes, added as data, on the
+    program's layout and on the window-sized one."""
+    _card()
+    if cell.startswith("scp4."):
+        line = run.run(cell, SEED, 3.0, False, control=torch.bfloat16,
+                       root=copy_benchmark(tmp_path))
+    else:
+        line = card_z.run_cell(card_z.benchmark(tmp_path), cell, layout, SEED, 3.0, False,
+                               control=torch.bfloat16)["line"]
     assert not line["correct"] and line["checks"]["sweep_mismatch"]["value"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell, layout", CARD_CELLS[2:])
+def test_the_z_cells_read_0_on_the_card(cell, layout, tmp_path):
+    """Traced, at gapd's sizes, on either layout: every check reads 0, and
+    kernel B's least time is summed over as many DP calls as the trace
+    shows it launched. In the window-sized layout gap20x200's 20 capacity
+    rows take kernel B, on a table under 512 entries."""
+    _card()
+    rec = card_z.run_cell(card_z.benchmark(tmp_path), cell, layout, SEED, 3.0, True)
+    line, mode = rec["line"], cell.rsplit(".", 1)[1]
+    assert line["correct"], line["checks"]
+    assert all(c["value"] == 0 for c in line["checks"].values())
+    if rec["dp_rows"]:
+        got = line["metrics"]
+        assert got[f"dp_bound.calls.{mode}"]["value"] == got[f"kernel_b.launches.{mode}"]["value"]
+        assert got[f"dp_bound.calls.{mode}"]["value"] > 0
+    if cell.startswith("gap20x200.") and layout == "window":
+        assert rec["dp_rows"] == 20 and rec["Wdp"] < 512

@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, the data files it
-names, the import rules, and a cell and a metric added as files alone."""
+names, the import rules, and a configuration, a cell and a metric added
+as files alone, cut to the CPU by the sizes their own files give."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from ilpbench import manifest, run
-from ilpbench.tests.tiny import tiny_benchmark
+from ilpbench.tests.tiny import copy_benchmark, cut, with_solve_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -86,6 +87,26 @@ def test_every_cell_reports_what_it_must(cell):
         assert m["moves"] in e2e, (cell, m["name"])
 
 
+def test_the_solve_cell_held_as_data_fits_the_benchmark():
+    """``scp4.solve``, out of ``BENCHMARK.json``, added back as its entries
+    alone: names unique, its traffic and readers there, and it reports
+    what a cell must."""
+    bench = with_solve_cell(manifest.load())
+    for kind in ("workloads", "end_to_end", "per_layer"):
+        names = [e["name"] for e in bench[kind]]
+        assert len(names) == len(set(names)), kind
+    cell = manifest.cell(bench, "scp4.solve")
+    assert cell["name"] not in CELLS
+    assert manifest.traffic(cell["traffic"]).get("ranks", 1) == cell["chips"] == 1
+    e2e = {m["name"] for m in manifest.metrics_for(bench, cell["name"], False)}
+    layers = manifest.metrics_for(bench, cell["name"], True)
+    assert e2e == {"setup_s", "solve_ms_per_sweep"} and layers
+    for m in layers:
+        assert m["moves"] in e2e, m["name"]
+    for m in manifest.metrics_for(bench, cell["name"], False) + layers:
+        assert callable(manifest.reader(m["name"])), m["name"]
+
+
 def test_layer_metrics_name_cells_that_report_what_they_move():
     for m in BENCH["per_layer"] + BENCH["end_to_end"]:
         for cell in m.get("workloads", []):
@@ -132,35 +153,69 @@ def test_the_loaded_module_check_compares_whole_names(monkeypatch):
     assert set(run.forbidden_modules()) == before | {"baryonyx_tpu"}
 
 
-def test_a_cell_and_a_metric_added_as_files_alone(tmp_path):
-    root = tiny_benchmark(tmp_path)
+def _add_config(root: Path, name: str, generator: str, args: dict, traffic: str, **extra):
+    """A configuration, its own traffic file (``optimize`` with ``extra``)
+    and its optimize cell, added to the copy at ``root`` as new files and
+    entries."""
     here = root / "ilpbench"
-    (here / "configs" / "scp_small.json").write_text(json.dumps({
-        "name": "scp_small", "source": "a smaller covering instance for this test",
-        "generator": "set_cover", "instance_seed": 3,
-        "args": {"m": 20, "n": 80, "density": 0.08}, "float_type": "float32",
-        "lagrangian_iterations": 200, "assumed": {}, "reduced": [],
+    (here / "configs" / f"{name}.json").write_text(json.dumps({
+        "name": name, "source": "a test", "generator": generator, "instance_seed": 3,
+        "args": args, "float_type": "float32", "lagrangian_iterations": 200, "assumed": {},
+        "reduced": [],
     }))
-    traffic = json.loads((here / "traffic" / "optimize.json").read_text())
-    (here / "traffic" / "optimize-short.json").write_text(
-        json.dumps(dict(traffic, warmup_sweeps=50)))
+    t = json.loads((here / "traffic" / "optimize.json").read_text())
+    (here / "traffic" / f"{traffic}.json").write_text(json.dumps(dict(t, **extra)))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": name, "source": "a test", "why": "a test",
+                             "file": f"ilpbench/configs/{name}.json", "reduced": []})
+    bench["workloads"].append({"name": f"{name}.optimize", "config": name, "traffic": traffic,
+                               "chips": 1, "why": "a test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "replica_sweeps_per_s":
+            m["workloads"].append(f"{name}.optimize")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def test_a_cell_and_a_metric_added_as_files_alone(tmp_path):
+    """Two configurations, each with its own traffic and a cell, and a
+    metric, added as new files and entries before the copy is cut to the
+    CPU: a set covering one, and a GAP type D one at gapd's largest size,
+    whose CPU size and traffic the cut takes from its generator. Both runs
+    are correct."""
+    root = copy_benchmark(tmp_path)
+    here = root / "ilpbench"
+    _add_config(root, "scp_small", "set_cover", {"m": 20, "n": 80, "density": 0.08},
+                "optimize-short", warmup_sweeps=50)
+    _add_config(root, "gapd20x200", "gap", {"m": 20, "n": 200}, "optimize-gapd",
+                warmup_sweeps=50, warmup_budget_s=30.0)
     (here / "metrics" / "optimize.window_sweeps.py").write_text(
         "def read(run):\n    return run['sweeps'] if run['mode'] == 'optimize' else None\n")
     bench = json.loads((root / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "scp_small", "source": "a test", "why": "a test",
-                             "file": "ilpbench/configs/scp_small.json", "reduced": []})
-    bench["workloads"].append({"name": "scp_small.optimize", "config": "scp_small",
-                               "traffic": "optimize-short", "chips": 1, "why": "a test"})
-    for m in bench["end_to_end"]:
-        if m["name"] == "replica_sweeps_per_s":
-            m["workloads"].append("scp_small.optimize")
     for name, unit in (("optimize.window_sweeps", "sweeps"), ("gap_pct", "%")):
         bench["end_to_end"].append({"name": name, "unit": unit, "better": "higher",
                                     "bound": 0.25, "source": "host_clock",
                                     "workloads": ["scp_small.optimize"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cut(root)
+    cfg = json.loads((here / "configs" / "gapd20x200.json").read_text())
+    assert cfg["args"] == {"m": 5, "n": 30}
     torch.set_num_threads(2)
     line = run.run("scp_small.optimize", 5, 1.0, False, device_type="cpu", root=root)
     assert line["correct"], line["checks"]
     assert line["metrics"]["optimize.window_sweeps"]["value"] > 0
     assert {"replica_sweeps_per_s", "gap_pct", "setup_s"} <= set(line["metrics"])
+    line = run.run("gapd20x200.optimize", 5, 1.0, False, device_type="cpu", root=root)
+    assert line["correct"], line["checks"]
+    assert all(c["value"] == 0 for c in line["checks"].values())
+    assert {"replica_sweeps_per_s", "setup_s"} <= set(line["metrics"])
+
+
+def test_a_configuration_without_a_cpu_size_names_where_to_give_one(tmp_path):
+    root = copy_benchmark(tmp_path)
+    src = (root / "ilpbench" / "generators" / "set_cover.py").read_text()
+    (root / "ilpbench" / "generators" / "cover_copy.py").write_text(
+        src.replace("TINY_ARGS =", "_NOT_TINY_ARGS ="))
+    _add_config(root, "cover_copy", "cover_copy", {"m": 20, "n": 80, "density": 0.08}, "optimize")
+    with pytest.raises(ValueError, match=r"generators/cover_copy\.py a TINY_ARGS, or "
+                                         r"ilpbench/configs/cover_copy\.json a \"tiny_args\""):
+        cut(root)

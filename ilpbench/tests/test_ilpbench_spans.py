@@ -13,10 +13,10 @@ import pytest
 import torch
 
 from ilpbench import manifest, run
-from ilpbench.tests.tiny import tiny_benchmark
+from ilpbench.tests.tiny import tiny_benchmark, with_solve_cell
 
 SEED = 2**31 + 77
-NEW = [m for m in manifest.load()["per_layer"] if m["source"] == "program_span"
+NEW = [m for m in with_solve_cell(manifest.load())["per_layer"] if m["source"] == "program_span"
        and m["name"] not in ("entry.parse_s", "entry.solver_setup_s")]
 ON_THE_CARD_ONLY = {"entry.kernel_load_s"}
 
