@@ -89,15 +89,24 @@ def add_rows_(S: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.T
 def column_sums(
     cp: CompiledProblem, P: torch.Tensor, pi: torch.Tensor
 ) -> torch.Tensor:
-    """Exact S[j] = sum_k a_kj (pi_k + P[k, s(k,j)]) by one scatter-add
-    (``add_rows_``) over all elements; padded slots land in a dropped row
-    n. P: [m, Kr, R], pi: [m, R] → [n, R]."""
+    """Exact S[j] = sum_k a_kj (pi_k + P[k, s(k,j)]) over the column view,
+    one column slot after another. The layout fills each column's slots in
+    ascending row order, so every device adds the terms in the order of a
+    scatter over the row view in ascending element order, bit for bit,
+    with no sort and no atomics. Padded column slots are dropped by
+    ``where``: a non-finite P in a padded row slot never reaches S.
+    P: [m, Kr, R], pi: [m, R] → [n, R]."""
     R = pi.shape[-1]
-    contrib = (cp.row_factor[:, :, None] * (pi[:, None, :] + P)).reshape(-1, R)
-    idx = torch.where(cp.row_mask, cp.row_vars, cp.n).reshape(-1).long()
-    S = torch.zeros((cp.n + 1, R), dtype=P.dtype, device=P.device)
-    add_rows_(S, idx, contrib)
-    return S[: cp.n]
+    Pf = P.reshape(-1, R)
+    rows = cp.col_rows.t().long().contiguous()  # [Kc, n]
+    flat = rows * cp.Kr + cp.col_slots.t().long()
+    fac = cp.row_factor.reshape(-1)[flat][:, :, None]  # [Kc, n, 1]
+    mask = cp.col_mask.t().contiguous()[:, :, None]
+    S = torch.zeros((cp.n, R), dtype=P.dtype, device=P.device)
+    for c in range(cp.Kc):
+        term = pi.index_select(0, rows[c]) + Pf.index_select(0, flat[c])
+        S += torch.where(mask[c], fac[c] * term, 0.0)
+    return S
 
 
 def write_rows(

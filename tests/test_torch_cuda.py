@@ -21,7 +21,7 @@ mode's shape); its double instance bit for bit at 512 and 1 replicas,
 and a float64 solve on a Z instance launches it once per block. Kernel
 and plain version also agree, S bit for bit, at a state with an infinite
 P on pairs that are not scheduled. The sweeps' column sums and a Z sweep
-repeat bit for bit on the card.
+repeat bit for bit on the card, and the column sums equal the CPU's.
 """
 
 import numpy as np
@@ -451,9 +451,10 @@ def test_kernel_and_plain_version_agree_at_a_nonfinite_P(cuda, variant):
 
 @pytest.mark.gpu
 def test_sweeps_repeat_bit_for_bit(cuda):
-    """The sweeps' scatter-adds (ops/sweep.py:add_rows_) sum in one order
-    on the card: the column sums of a large random state, and three Z
-    sweeps from one state, come out the same bit for bit every time."""
+    """The sweeps' sums come out in one order on the card: the column sums
+    of a large random state (over the column view, ops/sweep.py:column_sums)
+    and the Z path's (a scatter through ops/sweep.py:add_rows_), and three
+    Z sweeps from one state, are the same bit for bit every time."""
     from baryonyx_torch.ops.sweep import column_sums
 
     cp = _z_compiled("zknap", cuda)
@@ -484,6 +485,26 @@ def test_sweeps_repeat_bit_for_bit(cuda):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_column_sums_on_the_card_equal_the_cpu(cuda):
+    """At the main path's shape and replica count the card's column sums
+    are the CPU's bit for bit, a non-finite P in every padded row slot
+    included."""
+    from baryonyx_torch.ops.sweep import column_sums
+
+    cp = _z_compiled_lp(random_set_cover_lp(200, 1000, 0.02, seed=41), "cpu")
+    gen = torch.Generator().manual_seed(3)
+    R = 2048
+    P = torch.randn((cp.m, cp.Kr, R), generator=gen)
+    P = torch.where(cp.row_mask[:, :, None], P, float("inf"))
+    pi = torch.randn((cp.m, R), generator=gen)
+    want = column_sums(cp, P, pi)
+    cp_card = _z_compiled_lp(random_set_cover_lp(200, 1000, 0.02, seed=41), cuda)
+    got = column_sums(cp_card, P.to(cuda), pi.to(cuda))
+    assert torch.isfinite(want).all()
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu

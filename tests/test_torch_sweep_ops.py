@@ -1,6 +1,7 @@
 """Parity of the port's row activities, violation masks and merged column
 sums with the JAX package's ops/sweep.py, to atol 1e-5 (float32 sums
-taken in another order)."""
+taken in another order); the column sums also bit for bit against a
+scatter over the row view in ascending element order."""
 
 import dataclasses
 
@@ -71,3 +72,29 @@ def test_column_sums(name):
     js = np.asarray(jsweep.column_sums(jcp, jnp.asarray(P), jnp.asarray(pi)))
     ts = tsweep.column_sums(tcp, torch.as_tensor(P), torch.as_tensor(pi)).numpy()
     np.testing.assert_allclose(ts, js, rtol=0, atol=ATOL)
+
+
+def _row_view_sums(cp, P, pi):
+    """S by ``index_add_`` over the row view in ascending flattened order,
+    padded slots into a dropped row n: the order the column view keeps."""
+    R = pi.shape[-1]
+    contrib = (cp.row_factor[:, :, None] * (pi[:, None, :] + P)).reshape(-1, R)
+    idx = torch.where(cp.row_mask, cp.row_vars, cp.n).reshape(-1).long()
+    S = torch.zeros((cp.n + 1, R), dtype=P.dtype)
+    return S.index_add_(0, idx, contrib)[: cp.n]
+
+
+@pytest.mark.parametrize("padding", ["zero", "inf", "nan"])
+@pytest.mark.parametrize("name", list(LPS))
+def test_column_sums_equal_row_view_scatter(name, padding):
+    """Bit for bit against the row-view scatter; a non-finite P in every
+    padded row slot leaves S as it is with zeros there."""
+    _, tcp = _problem(name)
+    _, P, pi = _state(tcp, seed=2)
+    pi = torch.as_tensor(pi)
+    P = torch.where(tcp.row_mask[:, :, None], torch.as_tensor(P), 0.0)
+    want = _row_view_sums(tcp, P, pi)
+    assert torch.isfinite(want).all()
+    fill = {"zero": 0.0, "inf": float("inf"), "nan": float("nan")}[padding]
+    P = torch.where(tcp.row_mask[:, :, None], P, fill)
+    assert torch.equal(tsweep.column_sums(tcp, P, pi), want)
